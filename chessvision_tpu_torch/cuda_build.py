@@ -45,7 +45,7 @@ def _start_build(name: str, verbose: bool) -> tuple[Path, Path, subprocess.Popen
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]

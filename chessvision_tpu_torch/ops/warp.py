@@ -5,9 +5,11 @@ Counterpart of ``chessvision_tpu/ops/warp.py``, batched over boards:
 - ``get_perspective_transform`` and ``invert_homography`` in the same
   closed-form adjugate algebra (no linear solve);
 - ``warp_perspective`` with ``method="twopass"`` (the main path: the
-  Catmull–Smith two-pass warp, whose two 1-D resamples are kernel K1,
-  ``ops/hat_resample.py``) or ``method="bilinear"`` (one-shot bilinear
-  gather, cv2.warpPerspective arithmetic).
+  Catmull–Smith two-pass warp, which is kernel K1's ``warp_twopass`` in
+  ``ops/hat_resample.py``; its plain version ``warp_twopass_plain`` and
+  ``twopass_positions`` live beside the kernel's wrapper and are
+  re-exported here) or ``method="bilinear"`` (one-shot bilinear gather,
+  cv2.warpPerspective arithmetic).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from chessvision_tpu_torch.ops import hat_resample as _k1
 from chessvision_tpu_torch.ops.color import round_u8
+from chessvision_tpu_torch.ops.hat_resample import twopass_positions, warp_twopass_plain  # noqa: F401  (re-exported)
 
 
 def _adjugate(m: torch.Tensor) -> torch.Tensor:
@@ -57,43 +60,13 @@ def invert_homography(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
-def _guard(den: torch.Tensor) -> torch.Tensor:
-    return torch.where(torch.abs(den) < 1e-8, torch.full_like(den, 1e-8), den)
-
-
 def _warp_batched_twopass(imgs: torch.Tensor, ms: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Catmull–Smith two-pass warp of (B, H, W) by (B, 3, 3) src→dst
     homographies.  Pass 1 resamples each source row y at hx(u, y) = X(u, v*)
     where Y(u, v*) = y; pass 2 resamples each column of the result at
     Y(u, v).  Accurate for rotations up to roughly ±45°, which the
     engine's corner ordering guarantees."""
-    _, src_h, _ = imgs.shape
-    dev = imgs.device
-    minv = invert_homography(ms)
-
-    def bc(t: torch.Tensor) -> torch.Tensor:  # (B,) → (B, 1, 1)
-        return t[:, None, None]
-
-    a_, b_, c_ = bc(minv[:, 0, 0]), bc(minv[:, 0, 1]), bc(minv[:, 0, 2])
-    d_, e_, f_ = bc(minv[:, 1, 0]), bc(minv[:, 1, 1]), bc(minv[:, 1, 2])
-    g_, h_, i_ = bc(minv[:, 2, 0]), bc(minv[:, 2, 1]), bc(minv[:, 2, 2])
-
-    # pass-1 positions hx over (B, y=src_h, u=out_w)
-    ys = torch.arange(src_h, dtype=torch.float32, device=dev)[:, None].expand(src_h, out_w)
-    us = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :].expand(src_h, out_w)
-    den_v = e_ - ys * h_
-    v_star = (ys * (g_ * us + i_) - d_ * us - f_) / _guard(den_v)
-    den_x = g_ * us + h_ * v_star + i_
-    hx = (a_ * us + b_ * v_star + c_) / _guard(den_x)
-    tmp = _k1.hat_resample(imgs, hx)  # (B, src_h, out_w)
-
-    # pass-2 positions Y over (B, u=out_w, v=out_h), resampling tmp columns
-    vs = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :].expand(out_w, out_h)
-    uu = torch.arange(out_w, dtype=torch.float32, device=dev)[:, None].expand(out_w, out_h)
-    den = g_ * uu + h_ * vs + i_
-    vy = (d_ * uu + e_ * vs + f_) / _guard(den)
-    out_t = _k1.hat_resample(tmp.transpose(1, 2), vy)  # (B, out_w, out_h)
-    return out_t.transpose(1, 2)
+    return _k1.warp_twopass(imgs, invert_homography(ms), out_h, out_w)
 
 
 def _warp_batched(imgs: torch.Tensor, ms: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

@@ -13,10 +13,13 @@ Phases (any failure exits non-zero without the final result line):
    just after, and must have risen;
 3. plain path: the same batch with each kernel swapped for its plain
    PyTorch version must give the same ``found`` flags, FENs and boards;
-4. kernels vs plain: each kernel's wrapper on the inputs the main path
-   gave it, at batch 8 and 128, and on border and upscale cases, against
-   its plain version (stated tolerance), with its time, the plain
-   version's, a one-call PyTorch yardstick's and the least time the card
+4. kernels vs plain: both entries of K1 against their plain versions
+   (stated tolerance): ``warp_twopass`` on the inputs the main path gave
+   it at batch 8 and 128 and on seeded rotated, out-of-frame and identity
+   quads, ``hat_resample`` on the positions of the same inputs and on
+   border and upscale cases; then the times at batch 128 of the warp, of
+   each pass, of the route with the positions in memory, of the plain
+   version and of a PyTorch yardstick, beside the least time the card
    could take (bound);
 5. numbers: boards/s at batch 128 and p50 latency at batch 1 (full and
    lite), with the card's name and power limit.
@@ -35,7 +38,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
-K1_TOL = 1e-5  # kernel vs plain: same weights, products and one rounded sum
+# kernel vs plain: the same positions (every operation rounded to nearest, as
+# the plain version's eager ops round), weights, products and one rounded sum
+K1_TOL = 1e-5
 BATCH = 128  # the throughput cell, and the kernels' timing shapes
 
 
@@ -80,30 +85,35 @@ def percentile(xs: list[float], q: float) -> float:
 
 
 def capture_k1(k1, fn):
-    """Run ``fn`` with the K1 wrapper recording each (src, pos) it is given."""
-    calls = []
-    orig = k1.hat_resample
+    """Run ``fn`` with both K1 entries recording the arguments they are given."""
+    calls = {"warp_twopass": [], "hat_resample": []}
+    saved = {name: getattr(k1, name) for name in calls}
 
-    def recording(src, pos):
-        calls.append((src, pos))
-        return orig(src, pos)
+    def recording(name):
+        def run(*args):
+            calls[name].append(args)
+            return saved[name](*args)
 
-    k1.hat_resample = recording
+        return run
+
+    for name in calls:
+        setattr(k1, name, recording(name))
     try:
         result = fn()
     finally:
-        k1.hat_resample = orig
+        for name, orig in saved.items():
+            setattr(k1, name, orig)
     return result, calls
 
 
 def with_plain_k1(k1, fn):
-    """Run ``fn`` with K1 swapped for its plain PyTorch version."""
-    orig = k1.hat_resample
-    k1.hat_resample = k1.hat_resample_plain
+    """Run ``fn`` with both K1 entries swapped for their plain PyTorch versions."""
+    saved = (k1.warp_twopass, k1.hat_resample)
+    k1.warp_twopass, k1.hat_resample = k1.warp_twopass_plain, k1.hat_resample_plain
     try:
         return fn()
     finally:
-        k1.hat_resample = orig
+        k1.warp_twopass, k1.hat_resample = saved
 
 
 def k1_library(src, pos):
@@ -125,40 +135,103 @@ def k1_library(src, pos):
     return call
 
 
-def k1_bytes(src, pos) -> int:
-    """Bytes the function must move: src and pos read once, out written once."""
-    return 4 * (src.numel() + 2 * pos.numel())
+def max_err(got, want) -> float:
+    return float((got - want).abs().max())
 
 
-def measure_k1(k1, calls, plain_iters: int) -> dict:
-    """Kernel, plain and library times (ms, summed over the calls), bound
-    and max |kernel − plain| on the main path's own K1 inputs."""
+def check_k1(k1, imgs, minv, out_h: int, out_w: int) -> dict:
+    """max |kernel − plain| of both entries on one warp's inputs:
+    ``warp_twopass`` whole, and ``hat_resample`` on each pass's source and
+    positions (pass 2's source is the transposed view, read in place)."""
     import torch
 
-    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "library_max_abs_diff": 0.0, "shapes": []}
-    for src, pos in calls:
-        got = k1.hat_resample(src, pos)
-        torch.cuda.synchronize()
-        want = k1.hat_resample_plain(src, pos)
-        res["max_abs_err"] = max(res["max_abs_err"], float((got - want).abs().max()))
-        lib = k1_library(src, pos)
-        lib_out = lib().reshape(got.shape)
-        res["library_max_abs_diff"] = max(res["library_max_abs_diff"], float((lib_out - want).abs().max()))
-        ms = cuda_ms(lambda: k1.hat_resample(src, pos), iters=20)
-        plain = cuda_ms(lambda: k1.hat_resample_plain(src, pos), iters=plain_iters, warmup=1)
-        library = cuda_ms(lib, iters=20)
-        bound = k1_bytes(src, pos) / HBM_BYTES_PER_S * 1e3
-        res["ms"] += ms
-        res["plain_ms"] += plain
-        res["library_ms"] += library
-        res["bound_ms"] += bound
-        detail = {"src": list(src.shape), "pos": list(pos.shape), "src_contiguous": src.is_contiguous(),
-                  "ms": ms, "plain_ms": plain, "library_ms": library, "bound_ms": bound}
-        if not src.is_contiguous():  # the wrapper's copy of a transposed source, apart
-            src_c = src.contiguous()
-            detail["ms_on_contiguous_src"] = cuda_ms(lambda: k1.hat_resample(src_c, pos), iters=20)
-        res["shapes"].append(detail)
+    hx, vy = k1.twopass_positions(minv, imgs.shape[1], out_h, out_w)
+    tmp = k1.hat_resample_plain(imgs, hx)
+    want = k1.hat_resample_plain(tmp.transpose(1, 2), vy).transpose(1, 2)
+    got = k1.warp_twopass(imgs, minv, out_h, out_w)
+    torch.cuda.synchronize()
+    if not (got.is_contiguous() and got.shape == (imgs.shape[0], out_h, out_w)):
+        raise SystemExit("FAIL: warp_twopass result is not a contiguous (B, out_h, out_w)")
+    errs = {
+        "warp_twopass": max_err(got, want),
+        "hat_resample_pass1": max_err(k1.hat_resample(imgs, hx), tmp),
+        "hat_resample_pass2": max_err(k1.hat_resample(tmp.transpose(1, 2), vy).transpose(1, 2), want),
+    }
+    torch.cuda.synchronize()
+    return errs
+
+
+def seeded_quads(seed: int):
+    """Three (4, 2) quads in a 512² frame that the synthetic frames may not
+    give: rotated ~30°, partly outside the frame, and the identity quad of
+    a board that was not found."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rotated(deg, side, center):
+        a = np.deg2rad(deg)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        return np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64) * side / 2 @ rot.T + center
+
+    return np.stack([
+        rotated(30.0 + rng.uniform(-2, 2), rng.uniform(280, 320), rng.uniform(246, 266, 2)),
+        rotated(rng.uniform(5, 10), rng.uniform(400, 440), rng.uniform(380, 410, 2)),
+        np.array([[0, 0], [512, 0], [512, 512], [0, 512]], np.float64),
+    ]).astype(np.float32)
+
+
+def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
+    """Times (ms) on one warp's inputs: the two kernels together and each
+    alone; the route with the positions in memory (positions built by torch
+    ops, then ``hat_resample`` for each pass); the plain version; and the
+    grid_sample yardstick given the positions, and with building them.
+    Bounds: the function's own bytes (images read, boards written) and the
+    two-kernel design's (the intermediate written and read as well), at the
+    data sheet's memory rate; ``copy_tb_per_s`` is what a device-to-device
+    copy of the images reaches (bytes read + written over its time)."""
+    import torch
+
+    src_h = imgs.shape[1]
+    res = {"shape": [list(imgs.shape), out_h, out_w]}
+    res["ms"] = cuda_ms(lambda: k1.warp_twopass(imgs, minv, out_h, out_w), iters=20)
+    tmp = k1.warp_pass1(imgs, minv, out_w)
+    res["pass1_ms"] = cuda_ms(lambda: k1.warp_pass1(imgs, minv, out_w), iters=20)
+    res["pass2_ms"] = cuda_ms(lambda: k1.warp_pass2(tmp, minv, out_h), iters=20)
+
+    def positions_route():
+        hx, vy = k1.twopass_positions(minv, src_h, out_h, out_w)
+        mid = k1.hat_resample(imgs, hx)
+        return k1.hat_resample(mid.transpose(1, 2), vy).transpose(1, 2)
+
+    hx, vy = k1.twopass_positions(minv, src_h, out_h, out_w)
+    tmp_t = tmp.transpose(1, 2)
+    res["positions_route_ms"] = cuda_ms(positions_route, iters=10)
+    res["positions_ms"] = cuda_ms(lambda: k1.twopass_positions(minv, src_h, out_h, out_w), iters=10)
+    res["hat_resample_pass1_ms"] = cuda_ms(lambda: k1.hat_resample(imgs, hx), iters=20)
+    res["hat_resample_pass2_ms"] = cuda_ms(lambda: k1.hat_resample(tmp_t, vy), iters=20)
+    res["plain_ms"] = cuda_ms(lambda: k1.warp_twopass_plain(imgs, minv, out_h, out_w), iters=plain_iters, warmup=1)
+
+    lib1, lib2 = k1_library(imgs, hx), k1_library(tmp_t, vy)
+    res["library_ms"] = cuda_ms(lib1, iters=20) + cuda_ms(lib2, iters=20)
+
+    def library_with_positions():
+        hx_, vy_ = k1.twopass_positions(minv, src_h, out_h, out_w)
+        mid = k1_library(imgs, hx_)().reshape(imgs.shape[0], src_h, out_w)
+        return k1_library(mid.transpose(1, 2), vy_)()
+
+    res["library_with_positions_ms"] = cuda_ms(library_with_positions, iters=5)
+    want = k1.hat_resample_plain(tmp_t, vy)
+    res["library_max_abs_diff"] = max_err(lib2().reshape(want.shape), want)
+    scratch = torch.empty_like(imgs)
+    res["copy_tb_per_s"] = 8 * imgs.numel() / cuda_ms(lambda: scratch.copy_(imgs), iters=20) / 1e9
+    function_bytes = 4 * (imgs.numel() + minv.numel() + imgs.shape[0] * out_h * out_w)
+    res["bound_ms"] = function_bytes / HBM_BYTES_PER_S * 1e3
+    res["two_kernel_floor_ms"] = (function_bytes + 8 * tmp.numel()) / HBM_BYTES_PER_S * 1e3
+    res["positions_route_floor_ms"] = (
+        function_bytes + 4 * (2 * tmp.numel() + hx.numel() + vy.numel())
+    ) / HBM_BYTES_PER_S * 1e3
+    torch.cuda.synchronize()
     return res
 
 
@@ -245,6 +318,7 @@ def main() -> int:
     from chessvision_tpu_torch import engine as engine_mod
     from chessvision_tpu_torch.core import ChessVision
     from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
     from chessvision_tpu_torch.synthetic import board_frames
 
     t_start = time.perf_counter()
@@ -273,15 +347,18 @@ def main() -> int:
 
     k1.launches = 0
     single = cv.process_image(frames8[0])
-    (res8, calls8) = capture_k1(k1, lambda: engine.process_batch(frames8))
+    res8, calls8 = capture_k1(k1, lambda: engine.process_batch(frames8))
     torch.cuda.synchronize()
     launches = k1.launches
     log(f"[main] process_image found={single.board_extraction.quadrangle is not None} "
         f"fen={single.position.fen if single.position else ''!r}")
     log(f"[main] process_batch B=8 found={res8.board_found.tolist()} fens={res8.fens}")
-    log(f"[main] hat_resample launches over process_image + process_batch: {launches}")
+    log(f"[main] K1 launches over process_image + process_batch: {launches}; entries called in "
+        f"process_batch: {({k: len(v) for k, v in calls8.items()})}")
     if launches != 4:
         raise SystemExit(f"FAIL: expected 4 K1 launches (2 per pipeline call), got {launches}")
+    if len(calls8["warp_twopass"]) != 1 or calls8["hat_resample"]:
+        raise SystemExit("FAIL: the main path should call warp_twopass once and hat_resample never")
     if not (res8.probabilities.shape == (8, 64, 13) and np.isfinite(res8.probabilities).all()):
         raise SystemExit("FAIL: probabilities not finite (8, 64, 13)")
     if res8.board_image.shape != (8, 512, 512) or res8.logits.shape != (8, 256, 256):
@@ -297,7 +374,7 @@ def main() -> int:
     if lite.fens != res8.fens:
         raise SystemExit("FAIL: lite FENs differ from full FENs")
 
-    # -- 3. the same batch through the plain resample ----------------------------------------
+    # -- 3. the same batch through the plain warp --------------------------------------------
     res_plain = with_plain_k1(k1, lambda: engine.process_batch(frames8))
     board_diff = np.abs(res_plain.board_image.astype(int) - res8.board_image.astype(int))
     prob_diff = float(np.abs(res_plain.probabilities - res8.probabilities).max())
@@ -313,16 +390,19 @@ def main() -> int:
 
     # -- 4. kernel vs plain ---------------------------------------------------------------
     g = torch.Generator(device="cpu").manual_seed(args.seed)
-    edge = []
-    for lo, hi in ((-3.0, 514.0), (200.0, 300.0)):  # border and upscale cases
+    errs = {}
+    for name, (lo, hi) in (("border", (-3.0, 514.0)), ("upscale", (200.0, 300.0))):
         src = torch.rand((32, 512), generator=g).cuda()
         pos = (torch.linspace(lo, hi, 576)[None] + 0.3 * torch.arange(32)[:, None]).cuda()
         got = k1.hat_resample(src, pos)
         torch.cuda.synchronize()
-        edge.append(float((got - k1.hat_resample_plain(src, pos)).abs().max()))
-    log(f"[k1] border/upscale max |kernel - plain| = {edge}")
-    k1_8 = measure_k1(k1, calls8, plain_iters=5)
-    log(f"[k1] B=8 {json.dumps(k1_8)}")
+        errs[name] = {"hat_resample": max_err(got, k1.hat_resample_plain(src, pos))}
+    dest = torch.from_numpy(engine_mod._DEST).cuda()
+    quads = torch.from_numpy(seeded_quads(args.seed)).cuda()
+    minv_q = invert_homography(get_perspective_transform(quads, (dest + 32.0).expand(3, 4, 2))).contiguous()
+    imgs_q = torch.randint(0, 256, (3, 512, 512), generator=g).float().cuda()
+    errs["rotated/out-of-frame/identity"] = check_k1(k1, imgs_q, minv_q, 576, 576)
+    errs["B=8"] = check_k1(k1, *calls8["warp_twopass"][0])
 
     bsz = BATCH
     uniq = board_frames(args.seed + 1, min(bsz, 32))[0]
@@ -332,15 +412,27 @@ def main() -> int:
     res128, calls128 = capture_k1(k1, lambda: engine.process_batch(frames128))
     torch.cuda.synchronize()
     launches128 = k1.launches
-    log(f"[main] hat_resample launches over process_batch B={bsz}: {launches128}")
+    log(f"[main] K1 launches over process_batch B={bsz}: {launches128}")
     if launches128 != 2:
         raise SystemExit(f"FAIL: expected 2 K1 launches at B={bsz}, got {launches128}")
-    k1_128 = measure_k1(k1, calls128, plain_iters=2)
-    log(f"[k1] B={bsz} {json.dumps(k1_128)}")
-    worst = max([k1_8["max_abs_err"], k1_128["max_abs_err"], *edge])
-    if worst > K1_TOL:
+    warp128 = calls128["warp_twopass"][0]
+    errs[f"B={bsz}"] = check_k1(k1, *warp128)
+    log(f"[k1] max |kernel - plain| by case and entry: {json.dumps(errs)}")
+    worst = max(e for case in errs.values() for e in case.values())
+    if not worst <= K1_TOL:
         raise SystemExit(f"FAIL: K1 kernel differs from plain by {worst} > {K1_TOL}")
-    del calls8, calls128
+    k1_8 = time_k1(k1, *calls8["warp_twopass"][0], plain_iters=5)
+    log(f"[k1] B=8 {json.dumps(k1_8)}")
+    k1_128 = time_k1(k1, *warp128, plain_iters=2)
+    log(f"[k1] B={bsz} {json.dumps(k1_128)}")
+    log(f"[k1] B={bsz} warp_twopass {k1_128['ms']:.3f} ms (pass 1 {k1_128['pass1_ms']:.3f}, pass 2 "
+        f"{k1_128['pass2_ms']:.3f}) against the function's bound {k1_128['bound_ms']:.3f} ms and the "
+        f"two-kernel floor {k1_128['two_kernel_floor_ms']:.3f} ms; positions in memory + hat_resample "
+        f"twice {k1_128['positions_route_ms']:.3f} ms (floor {k1_128['positions_route_floor_ms']:.3f}); "
+        f"library_ms is grid_sample twice given the positions, {k1_128['library_ms']:.3f} ms "
+        f"({k1_128['library_with_positions_ms']:.3f} with building them); a device-to-device copy "
+        f"reaches {k1_128['copy_tb_per_s']:.2f} TB/s of the {HBM_BYTES_PER_S / 1e12:.2f} the bounds assume")
+    del calls8, calls128, warp128
 
     # -- 5. numbers ---------------------------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
