@@ -26,6 +26,8 @@ LABEL_INDICES = {label: idx for idx, label in enumerate(LABEL_NAMES)}
 WEIGHTS_DIR = REPO_ROOT / "weights"
 BEST_EXTRACTOR_WEIGHTS = str(WEIGHTS_DIR / "best_extractor.npz")
 BEST_CLASSIFIER_WEIGHTS = str(WEIGHTS_DIR / "best_classifier.npz")
+BEST_YOLO_EXTRACTOR = str(WEIGHTS_DIR / "best_yolo_extractor.npz")
+BEST_YOLO_CLASSIFIER = str(WEIGHTS_DIR / "best_yolo_classifier.npz")
 
 INVALID_PAWN_SQUARES = {
     "a1", "b1", "c1", "d1", "e1", "f1", "g1", "h1",

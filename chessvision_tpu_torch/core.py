@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from chessvision_tpu_torch import constants, models
+from chessvision_tpu_torch import weights as weights_mod
 from chessvision_tpu_torch.checkpoint import load_variables
 from chessvision_tpu_torch.chessboard import labels_to_fen
 from chessvision_tpu_torch.cv_types import (
@@ -34,13 +35,13 @@ from chessvision_tpu_torch.ops.color import bgr_to_gray, create_binary_mask, hfl
 from chessvision_tpu_torch.ops.quad import find_quadrangle_batch, scale_quadrangle
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
 from chessvision_tpu_torch.utils import full_f32, resolve_device
-from chessvision_tpu_torch.weights import flax_to_torch
 
 logger = logging.getLogger(__name__)
 
 # architecture kwargs each model constructor takes from training_config
 _ARCH_KEYS_BY_MODEL = {
     "unet": ("base", "bilinear"),
+    "yolo": ("width",),
     "resnet18": ("width", "num_classes"),
 }
 
@@ -75,7 +76,7 @@ def build_model(
     if variables is None:
         logger.warning("Weights not found at %s — random init for %s", weights, spec.model_id)
     else:
-        module.load_state_dict(flax_to_torch(variables, module))
+        module.load_state_dict(weights_mod.flax_to_torch(variables, module))
     return set_compute_dtype(module, dtype).to(device).eval(), spec
 
 
@@ -98,9 +99,14 @@ class ChessVision:
         self.device = resolve_device(device)
         self._board_extractor: Any = None  # (module, spec)
         self._classifier: Any = None
-        self._board_extractor_weights = board_extractor_weights or constants.BEST_EXTRACTOR_WEIGHTS
+        # explicit weights win; None means the model id's default
+        self._board_extractor_weights = board_extractor_weights or (
+            constants.BEST_YOLO_EXTRACTOR if board_extractor_model_id == "yolo" else constants.BEST_EXTRACTOR_WEIGHTS
+        )
         self._board_extractor_model_id = board_extractor_model_id
-        self._classifier_weights = classifier_weights or constants.BEST_CLASSIFIER_WEIGHTS
+        self._classifier_weights = classifier_weights or (
+            constants.BEST_YOLO_CLASSIFIER if classifier_model_id == "yolo" else constants.BEST_CLASSIFIER_WEIGHTS
+        )
         self._classifier_model_id = classifier_model_id
         self._dtype = dtype
         self._model_kwargs = model_kwargs or {}

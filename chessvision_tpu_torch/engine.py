@@ -1,11 +1,28 @@
 """The batched image→FEN engine on PyTorch.
 
-Counterpart of ``chessvision_tpu/engine.py`` for the raw-frame path:
-uint8 BGR frames → exact grayscale and area resize → UNet → sigmoid →
-quadrangles → closed-form homographies → two-pass warp into a margin
-canvas (kernel K1) → grid detection on the uint8-rounded board →
-``refine`` tail → flip → uint8 board, all as tensors on one device; the
-chess-rule validation and FEN assembly run on the host.
+Counterpart of ``chessvision_tpu/engine.py``: uint8 BGR frames → exact
+grayscale and area resize → segmenter → sigmoid → quadrangles →
+closed-form homographies → two-pass warp into a margin canvas (kernel K1)
+→ grid detection on the uint8-rounded board → ``refine`` tail → flip →
+uint8 board, all as tensors on one device; the chess-rule validation and
+FEN assembly run on the host.
+
+Input formats (sizes per board and rates on the card: PERF.md):
+
+- raw frames (``run_device``, ``process_batch``): the front half runs on
+  the device;
+- packed (``pack_inputs`` → ``run_packed``): the host makes the 256² color
+  input and the full-resolution gray; the raw path feeds the same back
+  half, so the two are bit-identical;
+- yuv (``pack_inputs_yuv`` → ``run_yuv``): full-resolution luma and 128²
+  chroma differences; the color input is rebuilt on the device in
+  float32 (approximate: mild chroma blur in the segmenter's input only);
+- yuv444 (``pack_inputs_yuv444`` → ``run_yuv444``): luma, 256² chroma
+  differences and a 4-bit green residual; rebuilt on the device in int32,
+  bit-identical to the packed path.
+
+``run_stream`` runs any of the four over an iterator of batches with the
+upload of batch i+1 under the compute of batch i.
 
 PyTorch runs eagerly, so there is no compiled program: the pipeline is
 ``_pipeline_core`` called under ``torch.inference_mode`` with TF32 off
@@ -13,6 +30,8 @@ PyTorch runs eagerly, so there is no compiled program: the pipeline is
 """
 
 from __future__ import annotations
+
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +77,186 @@ def preprocess_images(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     area resize to the segmentation input and the exact fixed-point gray."""
     comp = resize(images, _INPUT_HW, round_uint8=True)
     gray = bgr_to_gray(images, exact_u8=True)
+    return comp, gray
+
+
+# BT.601 luma weights of the fixed-point gray (ops/color.py):
+# gray = (LR·R + LG·G + LB·B + 2^14) >> 15 with LR + LG + LB = 2^15 exactly,
+# the identity the yuv444 reconstruction inverts in int32
+_LUMA_R_I, _LUMA_G_I, _LUMA_B_I = 9798, 19235, 3735
+_LUMA_R = _LUMA_R_I / 32768.0
+_LUMA_G = _LUMA_G_I / 32768.0
+_LUMA_B = _LUMA_B_I / 32768.0
+
+
+def reconstruct_comp_yuv(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
+    """Device half of the yuv codec: (B, 256, 256, 3) float32 BGR input of
+    the segmenter from (B, H, W) uint8 luma and (B, 128, 128) uint8 chroma
+    differences (offset 128).  Luma is area-resized, chroma bilinearly
+    upsampled (the float32 matmul path, TF32 off under ``full_f32``), green
+    solved from the luma equation; rounded half up and clipped as a uint8
+    round trip would."""
+    y256 = resize(y.float(), _INPUT_HW)
+    cb256 = resize(cb, _INPUT_HW) - 128.0
+    cr256 = resize(cr, _INPUT_HW) - 128.0
+    b256 = y256 + cb256
+    r256 = y256 + cr256
+    g256 = (y256 - _LUMA_R * r256 - _LUMA_B * b256) / _LUMA_G
+    comp = torch.stack([b256, g256, r256], dim=-1)
+    return torch.clamp(torch.floor(comp + 0.5), 0.0, 255.0)
+
+
+def _floor_div(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def reconstruct_comp_yuv444(
+    y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor, gres: torch.Tensor
+) -> torch.Tensor:
+    """Device half of the yuv444 codec: (B, 256, 256, 3) float32 comp, bit
+    for bit the comp that ``pack_inputs_yuv444`` started from wherever the
+    chroma differences fit int8 and the green residual int4.  Pure int32:
+    every division is a floor division of possibly negative numerators."""
+    bsz, h, w = y.shape
+    ih, iw = _INPUT_HW
+    fh, fw = h // ih, w // iw
+    f2 = fh * fw
+    # area sum of each luma block: ≤ f2·255
+    sum4 = y.to(torch.int32).reshape(bsz, ih, fh, iw, fw).sum(dim=(2, 4), dtype=torch.int32)
+    y256r = _floor_div(2 * sum4 + f2, 2 * f2)  # round-half-up of sum4 / f2
+    b256 = y256r + (cb.to(torch.int32) - 128)
+    r256 = y256r + (cr.to(torch.int32) - 128)
+    # G predicted from the luma identity anchored on the rounded luma:
+    # n = y256r·2^15 − LR·r − LB·b (|n| < 2^24), g ≈ n / LG rounded half up
+    n = (y256r << 15) - _LUMA_R_I * r256 - _LUMA_B_I * b256
+    g_pred = torch.clamp(_floor_div(2 * n + _LUMA_G_I, 2 * _LUMA_G_I), 0, 255)
+    gi = gres.to(torch.int32)
+    e = torch.stack([gi & 15, (gi >> 4) & 15], dim=-1).reshape(bsz, ih, iw)
+    g256 = torch.clamp(g_pred + (e - 8), 0, 255)
+    comp = torch.stack([b256, g256, r256], dim=-1).float()
+    return torch.clamp(comp, 0.0, 255.0)
+
+
+def _yuv_block_factors(gray: np.ndarray) -> tuple[int, int]:
+    """The (fh, fw) block factors of a frame for YUV packing; raises a
+    ``ValueError`` unless its dims are multiples of the segmentation input
+    size.  Every pack path goes through this guard, so a wrong size fails
+    on the host and not as a reshape error on the device."""
+    ih, iw = _INPUT_HW
+    h, w = gray.shape[1:3]
+    if h % ih or w % iw:
+        raise ValueError(
+            f"YUV packing needs frame dims divisible by {constants.INPUT_SIZE} "
+            f"(w, h); got {(w, h)} — use pack_inputs/the raw path for this size"
+        )
+    return h // ih, w // iw
+
+
+def _luma_block_sums(gray: np.ndarray) -> tuple[np.ndarray, int]:
+    """(B, 256, 256) int32 area-block sums of the full-resolution luma and
+    the block's pixel count f2: the integer base that host and device
+    share in the yuv444 reconstruction."""
+    ih, iw = _INPUT_HW
+    fh, fw = _yuv_block_factors(gray)
+    # accumulate in int32 without an upcast copy of the full-res plane
+    s = gray.reshape(len(gray), ih, fh, iw, fw).sum((2, 4), dtype=np.int32)
+    return s, fh * fw
+
+
+def pack_inputs_yuv444(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Host packing for ``run_yuv444``: full-resolution fixed-point gray,
+    256² chroma differences against the rounded luma downsample (offset
+    128, clipped to int8) and the 4-bit green residual plane, two per
+    byte.  The host mirrors the device's integer reconstruction, so the
+    residual it stores is the one the device needs."""
+    comp, gray = pack_inputs(images)
+    fh, fw = _yuv_block_factors(gray)
+    y256r = None
+    if (fh, fw) == (2, 2):
+        # cv2's integer INTER_AREA equals round-half-up of the block mean
+        # only at factor 2; other factors take the block sums below
+        try:
+            import cv2
+
+            y256r = np.stack(
+                [cv2.resize(g, constants.INPUT_SIZE, interpolation=cv2.INTER_AREA) for g in gray]
+            ).astype(np.int16)
+        except ImportError:
+            pass
+    if y256r is None:
+        sum4, f2 = _luma_block_sums(gray)
+        y256r = ((2 * sum4 + f2) // (2 * f2)).astype(np.int16)
+    # int16 throughout the small-range stages
+    cb_c = np.clip(comp[..., 0].astype(np.int16) - y256r, -128, 127)
+    cr_c = np.clip(comp[..., 2].astype(np.int16) - y256r, -128, 127)
+    cb = (cb_c + 128).astype(np.uint8)
+    cr = (cr_c + 128).astype(np.uint8)
+    # G prediction without materializing B/R: with b = y256r + cb_c and
+    # r = y256r + cr_c, the device's n = (y256r << 15) − LR·r − LB·b equals
+    # LG·y256r + m with m = −LR·cr_c − LB·cb_c, so its round-half-up
+    # quotient is y256r + floor((2m + LG) / 2LG).  The float32 quotient is
+    # exact to the floor: |2m + LG| < 2^22 (exact in float32), true
+    # quotients are ≥ 1/LG ≈ 5e-5 from any integer they do not attain, and
+    # the float32 error is ≤ ~6e-6.
+    m2 = cr_c * np.float32(-2.0 * _LUMA_R_I) + cb_c * np.float32(-2.0 * _LUMA_B_I)
+    adj = np.floor((m2 + np.float32(_LUMA_G_I)) / np.float32(2 * _LUMA_G_I))
+    g_pred = np.clip(y256r + adj, 0, 255)
+    resid = comp[..., 1].astype(np.int16) - g_pred
+    e = (np.clip(resid, -8, 7) + 8).astype(np.uint8)  # (B, 256, 256) in [0, 15]
+    gres = (e[..., 0::2] | (e[..., 1::2] << 4)).astype(np.uint8)  # (B, 256, 128)
+    return gray, cb, cr, gres
+
+
+def pack_inputs_yuv(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host packing for ``run_yuv``: full-resolution fixed-point gray plus
+    2×-subsampled chroma differences of the segmentation input (Cb = B − Y,
+    Cr = R − Y, offset-128 uint8, (B, 128, 128)).  The subsampled
+    difference is pure integer arithmetic: round-half-up of
+    (4·f2·ΣB − 4·ΣS) / (16·f2) over each 2×2 block, with ΣB the block sum
+    of the comp channel and ΣS that of the luma block sums."""
+    comp, gray = pack_inputs(images)
+    _yuv_block_factors(gray)
+    ih, iw = _INPUT_HW
+    th, tw = ih // 2, iw // 2
+    b = len(images)
+    sum4, f2 = _luma_block_sums(gray)
+    s_l = sum4.reshape(b, th, 2, tw, 2).sum((2, 4), dtype=np.int32)  # ΣS ≤ 4·f2·255
+    out = []
+    for ch in (0, 2):
+        s_c = comp[..., ch].reshape(b, th, 2, tw, 2).sum((2, 4), dtype=np.int32)  # ΣB ≤ 1020
+        # mean diff = ΣB/4 − ΣS/(4·f2), rounded half up by integer floor division
+        num = 2 * (s_c * f2 - s_l) + 4 * f2
+        d = num // (8 * f2)
+        out.append(np.clip(d + 128, 0, 255).astype(np.uint8))
+    return gray, out[0], out[1]
+
+
+def pack_inputs(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host packing for ``run_packed``: exact INTER_AREA 256×256 resize and
+    fixed-point gray, by cv2 when it imports and in numpy otherwise.  The
+    two are bit-equal on 512² frames; at larger integer factors cv2's
+    INTER_AREA rounds some pixels otherwise than the block mean."""
+    try:
+        import cv2
+    except ImportError:
+        b = images.astype(np.int32)
+        gray = ((b[..., 2] * _LUMA_R_I + b[..., 1] * _LUMA_G_I + b[..., 0] * _LUMA_B_I + (1 << 14)) >> 15).astype(
+            np.uint8
+        )
+        # integer-factor area mean, exact for divisible sizes; anything
+        # else fails here rather than give a wrong geometry
+        h, w = images.shape[1:3]
+        tw, th = constants.INPUT_SIZE
+        if h % th or w % tw:
+            raise ValueError(
+                f"pack_inputs numpy fallback needs frame dims divisible by "
+                f"{constants.INPUT_SIZE}; got {(h, w)} — install cv2 or resize on host first"
+            ) from None
+        fh, fw = h // th, w // tw
+        comp = images.reshape(len(images), th, fh, tw, fw, 3).mean((2, 4))
+        return np.floor(comp + 0.5).astype(np.uint8), gray
+    comp = np.stack([cv2.resize(im, constants.INPUT_SIZE, interpolation=cv2.INTER_AREA) for im in images])
+    gray = np.stack([cv2.cvtColor(im, cv2.COLOR_BGR2GRAY) for im in images])
     return comp, gray
 
 
@@ -235,6 +434,93 @@ def validate_labels_batch(
     return all_labels, all_fixes
 
 
+def _copy_back(out: dict[str, torch.Tensor], keys: Sequence[str]) -> dict[str, np.ndarray]:
+    """The named device outputs as host numpy arrays (waits for the device)."""
+    return {k: out[k].cpu().numpy() for k in keys}
+
+
+def _binary_mask(logits: np.ndarray, threshold: float) -> np.ndarray:
+    """Host-side threshold mask of the segmentation logits, uint8 in {0, 255}."""
+    with np.errstate(over="ignore"):
+        probs_mask = 1.0 / (1.0 + np.exp(-logits, dtype=np.float32))
+    return np.where(probs_mask > threshold, np.uint8(255), np.uint8(0))
+
+
+def _fen_strings(
+    probs: np.ndarray, validated: list[list[str]], found: np.ndarray, square_names: list[str]
+) -> tuple[list[str], list[str]]:
+    """(validated FENs, argmax FENs) of a batch; "" where no board was found."""
+    labels = np.asarray(constants.LABEL_NAMES, dtype=object)[np.argmax(probs, axis=-1)]
+    fens: list[str] = []
+    original_fens: list[str] = []
+    for bi in range(len(found)):
+        if not found[bi]:
+            original_fens.append("")
+            fens.append("")
+            continue
+        original_fens.append(labels_to_fen(list(labels[bi]), square_names))
+        fens.append(labels_to_fen(validated[bi], square_names))
+    return fens, original_fens
+
+
+class _StreamUploader:
+    """Host→device uploads for ``Engine.run_stream``.
+
+    On CUDA each field of a batch has two pinned staging buffers, used in
+    turn.  ``put`` copies the host array into the free one (a copy from
+    pageable memory would make the upload synchronous), enqueues
+    ``copy_(non_blocking=True)`` on a copy stream and records an event
+    after it.  The event does two jobs: ``take`` makes the compute stream
+    wait on it before the batch is used, and the next ``put`` into the same
+    buffer waits on it on the host, so a buffer is never overwritten while
+    its copy is in flight.  On the CPU ``put`` only wraps the arrays."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._copy_stream = torch.cuda.Stream(device)
+            self._slots: list[dict[int, torch.Tensor]] = [{}, {}]
+            self._events: list[torch.cuda.Event | None] = [None, None]
+            self._turn = 0
+
+    def put(self, fields: Sequence[Any]) -> tuple[list[torch.Tensor], Any]:
+        """Start the upload of one batch's fields; returns the tensors on
+        the device and the event that follows their copies (None on the
+        CPU)."""
+        tensors = [torch.as_tensor(a) for a in fields]
+        if not self._cuda:
+            return tensors, None
+        turn, self._turn = self._turn, 1 - self._turn
+        if self._events[turn] is not None:
+            self._events[turn].synchronize()
+        staged = []
+        for i, t in enumerate(tensors):
+            buf = self._slots[turn].get(i)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._slots[turn][i] = buf
+            buf.copy_(t)
+            staged.append(buf)
+        with torch.cuda.stream(self._copy_stream):
+            on_device = [t.to(self.device, non_blocking=True) for t in staged]
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        self._events[turn] = event
+        return on_device, event
+
+    def take(self, upload: tuple[list[torch.Tensor], Any]) -> list[torch.Tensor]:
+        """Make the current stream wait for an upload that ``put`` started,
+        and tell the allocator that its tensors are used on that stream."""
+        on_device, event = upload
+        if event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(event)
+            for t in on_device:
+                t.record_stream(compute)
+        return on_device
+
+
 class Engine:
     """Batched image→FEN engine on one device.
 
@@ -262,22 +548,101 @@ class Engine:
         self._classifier = classifier.to(self.device).eval()
         self._cls_probs_flag = classifier_outputs_probabilities
 
+    def _back_half(self, comp_f32: torch.Tensor, gray_f32: torch.Tensor, threshold: float) -> dict[str, torch.Tensor]:
+        """Everything after the input format: the one back half that every
+        entry point feeds (call under inference_mode and full_f32)."""
+        return _pipeline_core(
+            self._extractor,
+            self._classifier,
+            self._cls_probs_flag,
+            comp_f32,
+            gray_f32,
+            float(threshold),
+            self._refine,
+            self._arbitrate_chunk,
+        )
+
+    def _on_device(self, *arrays: Any) -> list[torch.Tensor]:
+        return [torch.as_tensor(a).to(self.device) for a in arrays]
+
     def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, torch.Tensor]:
         """Run the pipeline on (B, H, W, 3) uint8 frames; returns tensors on
-        the engine's device."""
+        the engine's device (no host sync).  The front half makes the
+        packed inputs on the device and hands them to ``run_packed``, so
+        raw and packed inference are bit-identical."""
         with torch.inference_mode(), full_f32():
-            x = torch.as_tensor(images).to(self.device)
-            comp, gray = preprocess_images(x)
-            return _pipeline_core(
-                self._extractor,
-                self._classifier,
-                self._cls_probs_flag,
-                comp.float(),
-                gray.float(),
-                float(threshold),
-                self._refine,
-                self._arbitrate_chunk,
-            )
+            comp, gray = preprocess_images(*self._on_device(images))
+        return self.run_packed(comp, gray, threshold)
+
+    def run_packed(self, comp: Any, gray: Any, threshold: float = 0.5) -> dict[str, torch.Tensor]:
+        """Run the pipeline on host-prepared inputs from ``pack_inputs``:
+        (B, 256, 256, 3) uint8 resized BGR and (B, H, W) uint8 gray."""
+        with torch.inference_mode(), full_f32():
+            comp, gray = self._on_device(comp, gray)
+            return self._back_half(comp.float(), gray.float(), threshold)
+
+    def run_yuv(self, y: Any, bc: Any, rc: Any, threshold: float = 0.5) -> dict[str, torch.Tensor]:
+        """Run the pipeline on inputs from ``pack_inputs_yuv`` (see
+        ``reconstruct_comp_yuv``).  Warp and classification see the exact
+        luma, so boards and geometry given a mask are those of the packed
+        path; only the segmenter's color input is approximate."""
+        with torch.inference_mode(), full_f32():
+            y, bc, rc = self._on_device(y, bc, rc)
+            return self._back_half(reconstruct_comp_yuv(y, bc, rc), y.float(), threshold)
+
+    def run_yuv444(self, y: Any, cb: Any, cr: Any, gres: Any, threshold: float = 0.5) -> dict[str, torch.Tensor]:
+        """Run the pipeline on inputs from ``pack_inputs_yuv444`` (see
+        ``reconstruct_comp_yuv444``): bit-identical to the packed path."""
+        with torch.inference_mode(), full_f32():
+            y, cb, cr, gres = self._on_device(y, cb, cr, gres)
+            return self._back_half(reconstruct_comp_yuv444(y, cb, cr, gres), y.float(), threshold)
+
+    def run_stream(
+        self, batches: Iterable[Any], threshold: float = 0.5, kind: str = "raw"
+    ) -> Iterator[dict[str, torch.Tensor]]:
+        """Pipelined streaming inference: upload batch i+1 while batch i
+        computes.  Yields the device output dicts in order, without a host
+        sync.
+
+        ``kind`` is the format of each element of ``batches``: "raw" —
+        (B, H, W, 3) uint8 frames; "packed" — (comp, gray) from
+        ``pack_inputs``; "yuv" — (y, bc, rc) from ``pack_inputs_yuv``;
+        "yuv444" — (y, cb, cr, gres) from ``pack_inputs_yuv444``.
+
+        Each round dispatches batch i first (eager kernels are enqueued
+        and the host runs ahead), then draws batch i+1 from the iterator
+        and starts its upload, then yields batch i's outputs: when
+        ``batches`` is a generator that packs on demand, both the packing
+        and the upload of batch i+1 lie under batch i's compute.  On CUDA
+        the upload goes through pinned staging buffers on a copy stream
+        (``_StreamUploader``); on the CPU it is the same loop with plain
+        tensors."""
+        run: Callable[..., dict[str, torch.Tensor]] | None = {
+            "raw": self.run_device,
+            "packed": self.run_packed,
+            "yuv": self.run_yuv,
+            "yuv444": self.run_yuv444,
+        }.get(kind)
+        if run is None:
+            raise ValueError(f"unknown stream kind {kind!r}")
+        uploader = _StreamUploader(self.device)
+        it = iter(batches)
+
+        def put(element: Any) -> tuple[list[torch.Tensor], Any]:
+            return uploader.put((element,) if kind == "raw" else tuple(element))
+
+        try:
+            current = put(next(it))
+        except StopIteration:
+            return
+        while True:
+            out = run(*uploader.take(current), threshold)
+            nxt = next(it, None)
+            pending = put(nxt) if nxt is not None else None
+            yield out
+            if pending is None:
+                return
+            current = pending
 
     def process_batch(
         self,
@@ -296,30 +661,19 @@ class Engine:
         b = images.shape[0]
         if lite:
             keep = ("found", "quadrangle", "probabilities") + (("board_image",) if include_board else ())
-            host = {k: out[k].cpu().numpy() for k in keep}
+            host = _copy_back(out, keep)
             host["logits"] = np.zeros((b, 0, 0), np.float32)
             host["binary_mask"] = np.zeros((b, 0, 0), np.uint8)
             host.setdefault("board_image", np.zeros((b, 0, 0), np.uint8))
         else:
-            host = {k: v.cpu().numpy() for k, v in out.items()}
-            with np.errstate(over="ignore"):
-                probs_mask = 1.0 / (1.0 + np.exp(-host["logits"], dtype=np.float32))
-            host["binary_mask"] = np.where(probs_mask > threshold, np.uint8(255), np.uint8(0))
+            host = _copy_back(out, tuple(out))
+            host["binary_mask"] = _binary_mask(host["logits"], threshold)
 
         square_names = constants.SQUARE_NAMES_FLIPPED if flip else constants.SQUARE_NAMES_NORMAL
         probs = host["probabilities"]
         found = host["found"]
-        labels = np.asarray(constants.LABEL_NAMES, dtype=object)[np.argmax(probs, axis=-1)]
         validated, fixes = validate_labels_batch(probs, square_names)
-        original_fens: list[str] = []
-        fens: list[str] = []
-        for bi in range(b):
-            if not found[bi]:
-                original_fens.append("")
-                fens.append("")
-                continue
-            original_fens.append(labels_to_fen(list(labels[bi]), square_names))
-            fens.append(labels_to_fen(validated[bi], square_names))
+        fens, original_fens = _fen_strings(probs, validated, found, square_names)
 
         return BatchResult(
             logits=host["logits"],

@@ -1,7 +1,7 @@
-"""Model registry of the port: ``unet`` extractor and ``resnet18``
-classifier, with the contract flags the engine reads (counterpart of
-``chessvision_tpu/models/__init__.py``; the YOLO slots are not ported
-yet)."""
+"""Model registry of the port (counterpart of
+``chessvision_tpu/models/__init__.py``): extractor ids ``unet`` and
+``yolo``, classifier ids ``resnet18`` and ``yolo``, each with the contract
+flags the engine reads."""
 
 from __future__ import annotations
 
@@ -12,11 +12,14 @@ from torch import nn
 
 from chessvision_tpu_torch.models.resnet import ResNet, resnet18
 from chessvision_tpu_torch.models.unet import UNet
+from chessvision_tpu_torch.models.yolo import YoloCls, YoloSeg
 
 __all__ = [
     "UNet",
     "ResNet",
     "resnet18",
+    "YoloCls",
+    "YoloSeg",
     "ModelSpec",
     "EXTRACTORS",
     "CLASSIFIERS",
@@ -36,16 +39,20 @@ class ModelSpec:
 
 EXTRACTORS: dict[str, ModelSpec] = {
     "unet": ModelSpec("unet", lambda **kw: UNet(**kw), (256, 256), 3),
+    "yolo": ModelSpec("yolo", lambda **kw: YoloSeg(**kw), (256, 256), 3),
 }
 
 CLASSIFIERS: dict[str, ModelSpec] = {
     "resnet18": ModelSpec("resnet18", lambda **kw: resnet18(**kw), (64, 64), 1),
+    # the flag is the JAX registry's: the engine takes this model's output
+    # as it comes, without a softmax
+    "yolo": ModelSpec("yolo", lambda **kw: YoloCls(**kw), (64, 64), 1, outputs_probabilities=True),
 }
 
 
 def _lookup(table: dict[str, ModelSpec], model_id: str) -> ModelSpec:
     if model_id not in table:
-        raise ValueError(f"model id {model_id!r} is not ported; have {sorted(table)}")
+        raise ValueError(f"unknown model id {model_id!r}; have {sorted(table)}")
     return table[model_id]
 
 

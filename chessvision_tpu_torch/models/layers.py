@@ -25,10 +25,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm in float32 (eps 1e-5, running statistics)."""
+    """Inference BatchNorm in float32 (running statistics; eps 1e-5 in the
+    UNet and the ResNet, 1e-3 in the YOLO family)."""
 
-    def __init__(self, channels: int) -> None:
-        super().__init__(channels, eps=1e-5)
+    def __init__(self, channels: int, eps: float = 1e-5) -> None:
+        super().__init__(channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float())

@@ -58,8 +58,16 @@ def resize_matrices(src_h: int, src_w: int, dst_h: int, dst_w: int) -> tuple[np.
 
 
 def resize(img: torch.Tensor, dst_hw: tuple[int, int], *, round_uint8: bool = False) -> torch.Tensor:
-    """Resize (B, H, W, C) images to ``dst_hw = (height, width)`` in
-    float32; ``round_uint8`` rounds half up and returns uint8."""
+    """Resize image(s) to ``dst_hw = (height, width)`` in float32;
+    ``round_uint8`` rounds half up and returns uint8.  Takes (H, W),
+    (H, W, C), (B, H, W) or (B, H, W, C); a 3-D input whose last axis is
+    at most 4 long is (H, W, C), as in the JAX package."""
+    if img.ndim == 2:
+        return resize(img[None, :, :, None], dst_hw, round_uint8=round_uint8)[0, :, :, 0]
+    if img.ndim == 3 and img.shape[-1] <= 4:
+        return resize(img[None], dst_hw, round_uint8=round_uint8)[0]
+    if img.ndim == 3:
+        return resize(img[..., None], dst_hw, round_uint8=round_uint8)[..., 0]
     dst_h, dst_w = dst_hw
     b, src_h, src_w, c = img.shape
     fh, fw = src_h // max(dst_h, 1), src_w // max(dst_w, 1)

@@ -1,0 +1,218 @@
+"""Tracing and timing utilities of the port (counterpart of
+``chessvision_tpu/profiling.py``).
+
+``trace`` captures a ``torch.profiler`` trace around any region and writes
+it as a Chrome trace (Perfetto reads it); ``time_fn`` is a synchronized
+wall-clock timer; ``profile_engine_stages`` times the pipeline's stages
+one at a time.  ``stage_breakdown``, ``device_busy`` and ``upload_overlap``
+take apart one ``Engine.process_batch`` / ``run_stream`` call.  On the GPU
+every timed call ends in ``torch.cuda.synchronize``: PyTorch returns before
+the device has finished, so a host clock without one measures the enqueue.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Callable, Iterator
+
+import numpy as np
+import torch
+
+from chessvision_tpu_torch import constants
+from chessvision_tpu_torch import engine as engine_mod
+from chessvision_tpu_torch.ops import gridfix
+from chessvision_tpu_torch.ops.color import bgr_to_gray, hflip
+from chessvision_tpu_torch.ops.quad import find_quadrangle_batch
+from chessvision_tpu_torch.ops.resize import resize
+from chessvision_tpu_torch.ops.squares import extract_squares_batch
+from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
+from chessvision_tpu_torch.synthetic import board_frames
+from chessvision_tpu_torch.utils import full_f32
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _profiler() -> Any:
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path | None = None) -> Iterator[Any]:
+    """Capture a torch.profiler trace of the enclosed region (host ops, and
+    device kernels and copies where there is a GPU) and write it to
+    ``log_dir/trace.json`` (default: ``cvtorch_trace`` in the temporary
+    directory).  Yields the profiler."""
+    out = Path(log_dir) if log_dir is not None else Path(tempfile.gettempdir()) / "cvtorch_trace"
+    out.mkdir(parents=True, exist_ok=True)
+    with _profiler() as prof:
+        yield prof
+        _sync()
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def wall_ms(fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 0) -> list[float]:
+    """Wall times (ms) of ``iters`` calls of ``fn(*args)``, each ending in a
+    device synchronize, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn(*args)
+    _sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def time_fn(fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 2) -> dict[str, float]:
+    """Median and best wall time of a device function, synchronized."""
+    times = wall_ms(fn, *args, iters=iters, warmup=warmup)
+    return {"p50_ms": float(np.median(times)), "best_ms": float(np.min(times))}
+
+
+def profile_engine_stages(cv_model: Any, batch_size: int = 32, iters: int = 5) -> dict[str, dict[str, float]]:
+    """Per-stage timings of the pipeline on ``cv_model``'s device, each
+    stage called on its own on seeded synthetic 512² frames: ``resize``,
+    ``unet`` (the segmenter), ``quadrangle``, ``warp`` (homographies, gray,
+    warp, flip) and ``classify`` (one classifier pass over the 64 crops of
+    each board)."""
+    dev = cv_model.device
+    uniq = board_frames(0, min(batch_size, 4))[0]
+    images = torch.from_numpy(np.concatenate([uniq] * -(-batch_size // len(uniq)))[:batch_size]).to(dev)
+    ex_mod, _ = cv_model.board_extractor
+    cl_mod, _ = cv_model.classifier
+    input_hw = (constants.INPUT_SIZE[1], constants.INPUT_SIZE[0])
+    dest = torch.tensor([[0.0, 0.0], [512.0, 0.0], [512.0, 512.0], [0.0, 512.0]], device=dev)
+
+    def resize_fn(im: torch.Tensor) -> torch.Tensor:
+        return resize(im, input_hw, round_uint8=True)
+
+    def quad_fn(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return find_quadrangle_batch(p, 0.5)
+
+    def warp_fn(im: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        ms = get_perspective_transform(q * 2.0, dest.expand(batch_size, 4, 2))
+        return hflip(warp_perspective(bgr_to_gray(im.float()), ms, constants.BOARD_SIZE))
+
+    def cls_fn(b: torch.Tensor) -> torch.Tensor:
+        return cl_mod(extract_squares_batch(b).reshape(batch_size * 64, *constants.PIECE_SIZE, 1) / 255.0)
+
+    with torch.inference_mode(), full_f32():
+        x = resize_fn(images).float() / 255.0
+        probs = torch.sigmoid(ex_mod(x)[..., 0].float())
+        quads, _ = quad_fn(probs)
+        boards = warp_fn(images, quads)
+        return {
+            "resize": time_fn(resize_fn, images, iters=iters),
+            "unet": time_fn(ex_mod, x, iters=iters),
+            "quadrangle": time_fn(quad_fn, probs, iters=iters),
+            "warp": time_fn(warp_fn, images, quads, iters=iters),
+            "classify": time_fn(cls_fn, boards, iters=iters),
+        }
+
+
+def stage_breakdown(engine: Any, frames: np.ndarray, iters: int) -> tuple[dict[str, float], float]:
+    """Mean synchronized wall time (ms) of each step inside
+    ``engine.process_batch(frames)``, device stages and host steps alike
+    (``upload`` is the frames' copy to the device, ``_copy_back`` the
+    outputs' copy to the host, ``_binary_mask`` the host sigmoid and
+    threshold, ``_fen_strings`` the FEN assembly); "other" is the rest
+    (homographies, rounding, the result object).  Returns (stages, total)."""
+    acc: dict[str, float] = {}
+
+    def timed(name: str, fn: Callable[..., Any]) -> Callable[..., Any]:
+        def run(*a: Any, **k: Any) -> Any:
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync()
+            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        return run
+
+    targets = [
+        (engine, "_on_device", "upload"),
+        (engine, "_extractor", "unet"),
+        (engine_mod, "preprocess_images", None),
+        (engine_mod, "find_quadrangle_batch", None),
+        (engine_mod, "warp_perspective", None),
+        (gridfix, "detect_grid", None),
+        (engine_mod, "_arbitrate_chunk", None),
+        (engine_mod, "_copy_back", None),
+        (engine_mod, "_binary_mask", None),
+        (engine_mod, "validate_labels_batch", None),
+        (engine_mod, "_fen_strings", None),
+    ]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    try:
+        for (owner, attr, fn), (_, _, label) in zip(saved, targets):
+            setattr(owner, attr, timed(label or attr, fn))
+        totals = wall_ms(engine.process_batch, frames, iters=iters)
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    stages = {k: v / iters for k, v in acc.items()}
+    total = sum(totals) / iters
+    stages["other"] = total - sum(stages.values())
+    return stages, total
+
+
+def _device_events(prof: Any) -> list[Any]:
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_busy(fn: Callable[[], Any]) -> tuple[float, float, str]:
+    """(device busy ms, wall ms, table of the top ops by device time) of one
+    synchronized call of ``fn`` under torch.profiler."""
+    _sync()
+    with _profiler() as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time_total for e in _device_events(prof)) / 1e3
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15)
+    return busy, wall, table
+
+
+def upload_overlap(prof: Any) -> dict[str, float]:
+    """How much of a profiled region's host→device copy time ran while a
+    kernel was running: ``h2d_ms`` is the summed duration of the copies,
+    ``h2d_under_kernels_ms`` the part of it inside the union of the
+    kernels' intervals, ``kernels_ms`` that union's length."""
+    copies, kernels = [], []
+    for e in _device_events(prof):
+        span = (e.time_range.start, e.time_range.end)
+        if "memcpy" in e.name.lower():
+            if "htod" in e.name.lower():
+                copies.append(span)
+        elif "memset" not in e.name.lower():
+            kernels.append(span)
+    merged: list[list[float]] = []
+    for start, end in sorted(kernels):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    under = 0.0
+    for c0, c1 in copies:
+        under += sum(max(0.0, min(c1, k1) - max(c0, k0)) for k0, k1 in merged)
+    return {
+        "h2d_copies": float(len(copies)),
+        "h2d_ms": sum(c1 - c0 for c0, c1 in copies) / 1e3,
+        "h2d_under_kernels_ms": under / 1e3,
+        "kernels_ms": sum(k1 - k0 for k0, k1 in merged) / 1e3,
+    }

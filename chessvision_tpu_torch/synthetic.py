@@ -103,3 +103,13 @@ def board_frames(seed: int, n: int, size: int = 512) -> tuple[np.ndarray, np.nda
     rng = np.random.default_rng(seed)
     pairs = [board_frame(rng, size) for _ in range(n)]
     return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def limit_chroma(frames: np.ndarray) -> np.ndarray:
+    """``frames`` with every pixel's color pulled halfway to its gray, so that
+    B − Y and R − Y stay inside int8 as they do in board photos (the flat
+    clutter rectangles above take any color, and their chroma clips in the
+    yuv444 codec)."""
+    f = frames.astype(np.float32)
+    gray = (f @ np.array([0.114, 0.587, 0.299], np.float32))[..., None]
+    return np.clip(np.floor(gray + 0.5 * (f - gray) + 0.5), 0, 255).astype(np.uint8)

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Iterator
 
 import torch
@@ -39,3 +40,14 @@ def full_f32() -> Iterator[None]:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def setup_logger(name: str, level: int = logging.INFO) -> logging.Logger:
+    """A logger with one stream handler and a timestamped format."""
+    log = logging.getLogger(name)
+    if not log.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
+        log.addHandler(handler)
+    log.setLevel(level)
+    return log

@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
+(``--load-client`` is the server phase's own child process.)
+
 Phases (any failure exits non-zero without the final result line):
 
 1. build: compile every CUDA kernel of the port from ``chessvision_tpu_torch/csrc``
@@ -22,7 +24,27 @@ Phases (any failure exits non-zero without the final result line):
    version and of a PyTorch yardstick, beside the least time the card
    could take (bound);
 5. numbers: boards/s at batch 128 and p50 latency at batch 1 (full and
-   lite), with the card's name and power limit.
+   lite), with the card's name and power limit;
+6. codecs: ``run_packed`` and ``run_yuv444`` on host-packed inputs must give
+   the raw path's five outputs bit for bit, ``run_yuv`` the same ``found``
+   flags; bytes per board of each format;
+7. stream: ``run_stream`` over 6 batches of 128 for each input kind must
+   yield the outputs of six separate calls, in order, with 2 K1 launches a
+   batch; boards/s streamed and not;
+8. yolo: the facade with the YOLO pair (committed weights) at batch 8;
+9. server: the HTTP server on loopback with the micro-batcher in front of
+   the engine: /ping, concurrent /cv_algo/ posts (each FEN must equal
+   ``process_batch``'s), a flipped and an undecodable post, /feedback/,
+   then the micro-batcher alone with boards; request latency and rate.
+
+Phases 7–9 also record what their path hands K1 (a streamed batch of each
+kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
+and hold the kernel against its plain version on those inputs; the
+server's launches must be 2 for each batch the micro-batcher ran.
+
+``--profile`` adds stage times (device stages and the host steps of
+``process_batch``), the device's busy share, peak memory, and how much of
+``run_stream``'s upload time lies under kernels.
 
 Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
@@ -35,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
@@ -64,19 +87,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def host_ms(fn, iters: int) -> list[float]:
-    """Host wall times (ms) of ``fn``, each ending in a synchronize."""
-    import torch
-
-    out = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
 
 
 def percentile(xs: list[float], q: float) -> float:
@@ -161,6 +171,21 @@ def check_k1(k1, imgs, minv, out_h: int, out_w: int) -> dict:
     return errs
 
 
+def check_captured(k1, calls: dict, where: str) -> dict:
+    """``check_k1`` on every ``warp_twopass`` call that ``capture_k1``
+    recorded on a path: {"<where> call i B=n": errors}.  The path must have
+    gone through ``warp_twopass`` and never through ``hat_resample``."""
+    if not calls["warp_twopass"] or calls["hat_resample"]:
+        fail(f"{where}: expected warp_twopass calls only, got {({k: len(v) for k, v in calls.items()})}")
+    errs = {}
+    for i, args in enumerate(calls["warp_twopass"]):
+        errs[f"{where} call {i} B={args[0].shape[0]}"] = check_k1(k1, *args)
+    worst = max(e for case in errs.values() for e in case.values())
+    if not worst <= K1_TOL:
+        fail(f"{where}: K1 kernel differs from plain by {worst} > {K1_TOL}: {json.dumps(errs)}")
+    return errs
+
+
 def seeded_quads(seed: int):
     """Three (4, 2) quads in a 512² frame that the synthetic frames may not
     give: rotated ~30°, partly outside the frame, and the identity quad of
@@ -235,76 +260,416 @@ def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
     return res
 
 
-def stage_breakdown(engine, frames, iters: int) -> tuple[dict, float]:
-    """Mean synchronized wall time (ms) of each pipeline stage inside
-    ``engine.process_batch(frames)``; "other" is the rest (copies to and
-    from the card, homographies, rounding, FEN strings)."""
+KEYS = ("logits", "quadrangle", "found", "board_image", "probabilities")
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"FAIL: {msg}")
+
+
+def same_outputs(a: dict, b: dict) -> list[str]:
+    """The keys on which two device output dicts differ in any bit."""
     import torch
 
-    from chessvision_tpu_torch import engine as engine_mod
-    from chessvision_tpu_torch.ops import gridfix
+    return [k for k in KEYS if not torch.equal(a[k], b[k])]
 
-    acc: dict[str, float] = {}
 
-    def timed(name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
+def fens_of(engine_mod, constants, out: dict) -> list[str]:
+    """Validated FENs of a device output dict ("" where no board was found)."""
+    probs = out["probabilities"].cpu().numpy()
+    found = out["found"].cpu().numpy()
+    names = constants.SQUARE_NAMES_NORMAL
+    validated, _ = engine_mod.validate_labels_batch(probs, names)
+    return engine_mod._fen_strings(probs, validated, found, names)[0]
 
-        return run
 
-    targets = [
-        (engine_mod, "preprocess_images"),
-        (engine_mod, "find_quadrangle_batch"),
-        (engine_mod, "warp_perspective"),
-        (gridfix, "detect_grid"),
-        (engine_mod, "_arbitrate_chunk"),
-        (engine_mod, "validate_labels_batch"),
-    ]
-    saved = [(m, n, getattr(m, n)) for m, n in targets]
-    extractor = engine._extractor
-    for m, n, f in saved:
-        setattr(m, n, timed(n, f))
-    engine._extractor = timed("unet", extractor)
+def ppm_bytes(frame_bgr) -> bytes:
+    """A uint8 BGR frame as a binary PPM: an encoding that needs no
+    encoder here, is lossless, and that the server's cv2.imdecode reads."""
+    h, w = frame_bgr.shape[:2]
+    return f"P6\n{w} {h}\n255\n".encode() + frame_bgr[:, :, ::-1].tobytes()
+
+
+def http_json(port: int, path: str, payload: dict | None):
+    """(status, body) of a GET (payload None) or a JSON POST on loopback."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
     try:
-        totals = host_ms(lambda: engine.process_batch(frames), iters)
-    finally:
-        for m, n, f in saved:
-            setattr(m, n, f)
-        engine._extractor = extractor
-    stages = {k: v / iters for k, v in acc.items()}
-    total = sum(totals) / iters
-    stages["other"] = total - sum(stages.values())
-    return stages, total
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
-def device_busy(engine, frames) -> tuple[float, float, str]:
-    """(device busy ms, wall ms, top-op table) of one process_batch under
-    torch.profiler."""
+def in_threads(jobs: list) -> list:
+    """Run the callables at once, one thread each; their results in order."""
+    import threading
+
+    results = [None] * len(jobs)
+
+    def run(i):
+        results[i] = jobs[i]()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        fail("a request thread did not finish")
+    return results
+
+
+def phase_codecs(engine, engine_mod, constants, frames8, soft8) -> None:
+    """Packed and yuv444 inputs against the raw path, bit for bit; yuv's
+    found flags; bytes per board."""
+    n = len(frames8)
+    packers = {"packed": engine_mod.pack_inputs, "yuv": engine_mod.pack_inputs_yuv,
+               "yuv444": engine_mod.pack_inputs_yuv444}
+    sizes = {"raw": frames8.nbytes // n}
+    sizes.update({k: sum(a.nbytes for a in fn(frames8)) // n for k, fn in packers.items()})
+    log(f"[codecs] bytes per 512x512 board, from the arrays: {json.dumps(sizes)}")
+    for name, frames in (("synthetic", frames8), ("synthetic, chroma limited", soft8)):
+        raw = engine.run_device(frames)
+        diff = same_outputs(engine.run_packed(*packers["packed"](frames)), raw)
+        log(f"[codecs] {name}: run_packed vs run_device differing outputs: {diff}")
+        if diff:
+            fail(f"run_packed differs from run_device on {diff}")
+    # yuv444 is exact where the chroma differences fit int8: the limited
+    # frames, as board photos; the flat clutter of the plain synthetic
+    # frames takes any color, so there it is only reported
+    raw_soft = engine.run_device(soft8)
+    y, cb, cr, gres = packers["yuv444"](soft8)
+    clipped = int(((cb == 0) | (cb == 255) | (cr == 0) | (cr == 255)).sum())
+    diff = same_outputs(engine.run_yuv444(y, cb, cr, gres), raw_soft)
+    log(f"[codecs] chroma limited: run_yuv444 vs run_device differing outputs: {diff} ({clipped} clipped chroma values)")
+    if clipped or diff:
+        fail(f"run_yuv444 differs from run_device on {diff} ({clipped} clipped)")
+    raw = engine.run_device(frames8)
+    raw_fens = fens_of(engine_mod, constants, raw)
+    y, cb, cr, gres = packers["yuv444"](frames8)
+    out444 = engine.run_yuv444(y, cb, cr, gres)
+    clipped = int(((cb == 0) | (cb == 255) | (cr == 0) | (cr == 255)).sum())
+    agree = sum(a == b for a, b in zip(fens_of(engine_mod, constants, out444), raw_fens))
+    log(f"[codecs] synthetic (saturated clutter, {clipped} clipped chroma values): run_yuv444 FENs equal "
+        f"run_device's on {agree}/{n}")
+    for name, frames, ref in (("synthetic", frames8, raw), ("synthetic, chroma limited", soft8, raw_soft)):
+        out = engine.run_yuv(*packers["yuv"](frames))
+        agree = sum(a == b for a, b in zip(fens_of(engine_mod, constants, out), fens_of(engine_mod, constants, ref)))
+        same_found = bool((out["found"] == ref["found"]).all())
+        log(f"[codecs] {name}: run_yuv found equal={same_found}, FENs equal the packed path's on {agree}/{n}")
+        if not same_found:
+            fail("run_yuv gives other found flags than the packed path")
+
+
+def phase_stream(engine, engine_mod, k1, frames128, profile: bool) -> tuple[int, dict]:
+    """run_stream against six separate calls for each input kind; returns
+    the K1 launches of the streamed runs that were counted, and K1's errors
+    against its plain version on the inputs a streamed batch of each kind
+    gave it."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from chessvision_tpu_torch import profiling
+
+    n_batches, bsz = 6, len(frames128)
+    batches = [np.roll(frames128, 5 * i, axis=0) for i in range(n_batches)]
+    kinds = {
+        "raw": (lambda f: (f,), engine.run_device),
+        "packed": (engine_mod.pack_inputs, engine.run_packed),
+        "yuv": (engine_mod.pack_inputs_yuv, engine.run_yuv),
+        "yuv444": (engine_mod.pack_inputs_yuv444, engine.run_yuv444),
+    }
+    counted, errs = 0, {}
+    for kind, (pack, run) in kinds.items():
         t0 = time.perf_counter()
-        engine.process_batch(frames)
+        packed = [pack(b) for b in batches]
+        pack_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+        elements = [p[0] for p in packed] if kind == "raw" else packed
+
+        def separate():
+            return [run(*p) for p in packed]
+
+        def streamed():
+            return list(engine.run_stream(iter(elements), kind=kind))
+
+        want = separate()
+        # warm-up (pinned buffers, copy stream), with K1's arguments recorded
+        _, calls = capture_k1(k1, lambda: list(engine.run_stream(iter(elements[:2]), kind=kind)))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels) / 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15)
-    return busy, wall, table
+        calls["warp_twopass"] = calls["warp_twopass"][1:]  # the second batch: uploaded under the first
+        errs.update(check_captured(k1, calls, f"run_stream {kind}"))
+        del calls
+        k1.launches = 0
+        got = streamed()
+        torch.cuda.synchronize()
+        launches = k1.launches
+        counted += launches
+        if launches != 2 * n_batches:
+            fail(f"run_stream kind={kind}: expected {2 * n_batches} K1 launches, got {launches}")
+        if len(got) != n_batches:
+            fail(f"run_stream kind={kind} yielded {len(got)} of {n_batches} batches")
+        for i, (g, w) in enumerate(zip(got, want)):
+            diff = same_outputs(g, w)
+            if diff:
+                fail(f"run_stream kind={kind} batch {i} differs from the separate call on {diff}")
+        del got, want
+        times = {"separate": [], "streamed": []}
+        for name, fn in (("separate", separate), ("streamed", streamed), ("streamed", streamed), ("separate", separate)):
+            times[name] += profiling.wall_ms(fn, iters=1)
+        rate = {k: [round(n_batches * bsz * 1e3 / t, 1) for t in v] for k, v in times.items()}
+        log(f"[stream] kind={kind}: {n_batches} batches of {bsz} equal the separate calls, K1 launches {launches}; "
+            f"boards/s streamed {rate['streamed']} against separate calls with pageable uploads {rate['separate']} "
+            f"(ms: {json.dumps({k: [round(t, 2) for t in v] for k, v in times.items()})}); "
+            f"host packing {pack_ms:.2f} ms a batch, not in either")
+        if profile:
+            with tempfile.TemporaryDirectory() as tmp, profiling.trace(tmp) as prof:
+                list(engine.run_stream(iter(elements[:4]), kind=kind))
+            log(f"[stream] kind={kind} profiled over 4 batches: {json.dumps(profiling.upload_overlap(prof))}")
+    return counted, errs
+
+
+def phase_yolo(k1, frames8) -> tuple[int, dict]:
+    """The facade with the YOLO pair at batch 8; returns K1's launches and
+    its errors against its plain version on that call's inputs."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import models
+    from chessvision_tpu_torch.core import ChessVision
+
+    cv = ChessVision(board_extractor_model_id="yolo", classifier_model_id="yolo", device="cuda")
+    engine = cv.engine
+    if not (isinstance(cv.board_extractor[0], models.YoloSeg) and isinstance(cv.classifier[0], models.YoloCls)):
+        fail("the yolo ids did not build the YOLO models")
+    engine.process_batch(frames8)  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = 0
+    res, calls = capture_k1(k1, lambda: engine.process_batch(frames8))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    errs = check_captured(k1, calls, "yolo")
+    del calls
+    lite = engine.process_batch(frames8, lite=True)
+    log(f"[yolo] process_batch B=8 found={int(res.board_found.sum())}/8 fens={res.fens}; K1 launches {launches}")
+    if launches != 2:
+        fail(f"yolo: expected 2 K1 launches, got {launches}")
+    if not (res.probabilities.shape == (8, 64, 13) and np.isfinite(res.probabilities).all()):
+        fail("yolo: probabilities not finite (8, 64, 13)")
+    if not np.isfinite(res.logits).all() or res.logits.shape != (8, 256, 256):
+        fail("yolo: logits not finite (8, 256, 256)")
+    if lite.fens != res.fens:
+        fail("yolo: lite FENs differ from full FENs")
+    cv32 = ChessVision(board_extractor_model_id="yolo", classifier_model_id="yolo", device="cuda", dtype=torch.float32)
+    res32 = cv32.engine.process_batch(frames8)
+    agree = sum(a == b for a, b in zip(res32.fens, res.fens))
+    log(f"[yolo] f32: found equal={bool((res32.board_found == res.board_found).all())}, "
+        f"FENs equal bf16 vs f32: {agree}/8")
+    frames128 = np.concatenate([frames8] * 16)
+    from chessvision_tpu_torch import profiling
+
+    t = profiling.wall_ms(engine.process_batch, frames128, iters=5, warmup=1)
+    one = profiling.wall_ms(engine.process_batch, frames8[:1], iters=20, warmup=2)
+    log(f"[yolo] B=128 bf16 process_batch median {percentile(t, 0.5):.2f} ms -> "
+        f"{128e3 / percentile(t, 0.5):.1f} boards/s; B=1 p50 {percentile(one, 0.5):.2f} ms")
+    return launches, errs
+
+
+def load_client(port: int, bodies_path: str) -> int:
+    """The server phase's load generator, run as a process of its own so
+    that its threads do not share the server's interpreter lock: 20 posts
+    one at a time, then 4 rounds of 16 at once, cycling through the JSON
+    bodies in ``bodies_path``.  Prints one JSON line of latencies (ms) and
+    rates; imports the standard library only."""
+    import urllib.request
+
+    with open(bodies_path, "rb") as f:
+        bodies = [json.dumps(b).encode() for b in json.load(f)]
+
+    def post(i: int) -> float:
+        t = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/cv_algo/", data=bodies[i % len(bodies)],
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            if not json.loads(resp.read())["success"]:
+                raise SystemExit("a post was refused")
+        return (time.perf_counter() - t) * 1e3
+
+    one_by_one = [post(i) for i in range(20)]
+    rounds = []
+    for _ in range(4):
+        t = time.perf_counter()
+        lat = in_threads([lambda i=i: post(i) for i in range(16)])
+        rounds.append({"requests_per_s": 16 / (time.perf_counter() - t), "p50_ms": percentile(lat, 0.5)})
+    print(json.dumps({"one_by_one_ms": one_by_one, "rounds": rounds}))
+    return 0
+
+
+class HoldFirst:
+    """An engine whose first ``process_batch`` waits to be released, so that
+    later submits queue up behind it and are coalesced into one batch."""
+
+    def __init__(self, engine) -> None:
+        import threading
+
+        self.engine = engine
+        self.release = threading.Event()
+        self.sizes: list[int] = []
+
+    def process_batch(self, imgs, **kw):
+        self.sizes.append(len(imgs))
+        if len(self.sizes) == 1:
+            self.release.wait(120)
+        return self.engine.process_batch(imgs, **kw)
+
+
+def phase_server(k1, frames8) -> tuple[int, dict]:
+    """The HTTP server and the micro-batcher on the card; returns K1's
+    launches over the burst of requests and its errors against its plain
+    version on the inputs every batch of that burst gave it."""
+    import base64
+    import shutil
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.serve.server import _MicroBatcher, serve
+
+    cv = ChessVision(device="cuda", lazy_load=False)
+    engine = cv.engine
+    batches: list[int] = []  # the sizes of the batches that the micro-batcher hands the engine
+    process_batch = engine.process_batch
+
+    def counting(imgs, **kw):
+        batches.append(len(imgs))
+        return process_batch(imgs, **kw)
+
+    upload_root = tempfile.mkdtemp(prefix="cv_uploads_")
+    engine.process_batch = counting
+    t0 = time.perf_counter()
+    server = serve(port=0, local=True, cv_model=cv, upload_root=upload_root, warmup=True)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    log(f"[server] up on loopback port {port}, warmed batch sizes 1..16 in {time.perf_counter() - t0:.1f} s")
+    try:
+        status, body = http_json(port, "/ping", None)
+        if (status, body) != (200, {"status": "ok"}):
+            fail(f"/ping answered {status} {body}")
+        if batches != [1, 2, 4, 8, 16]:
+            fail(f"the warm-up ran batches {batches}, expected [1, 2, 4, 8, 16]")
+        want = process_batch(frames8, lite=True)
+        want_flip = process_batch(frames8[:1], flip=True, lite=True)
+        posts = [{"image": base64.b64encode(ppm_bytes(f)).decode()} for f in frames8]
+        posts.append({**posts[0], "flip": True})
+        posts.append({"image": base64.b64encode(b"not an image").decode()})
+        expect = [(f, bool(ok)) for f, ok in zip(want.fens, want.board_found)]
+        expect.append((want_flip.fens[0], bool(want_flip.board_found[0])))
+
+        def timed_post(payload):
+            t = time.perf_counter()
+            status, body = http_json(port, "/cv_algo/", payload)
+            return status, body, (time.perf_counter() - t) * 1e3
+
+        batches.clear()
+        k1.launches = 0
+        answers, calls = capture_k1(k1, lambda: in_threads([lambda p=p: timed_post(p) for p in posts]))
+        torch.cuda.synchronize()
+        launches = k1.launches
+        burst = list(batches)
+        # 9 decodable posts in two groups (flipped or not), each padded to a power of two
+        if not burst or sum(burst) < 9 or any(b & (b - 1) for b in burst):
+            fail(f"the burst ran as batches {burst}")
+        if launches != 2 * len(burst) or [a[0].shape[0] for a in calls["warp_twopass"]] != burst:
+            fail(f"the burst ran as batches {burst}: expected {2 * len(burst)} K1 launches, got {launches}; "
+                 f"warp_twopass saw {[a[0].shape[0] for a in calls['warp_twopass']]}")
+        errs = check_captured(k1, calls, "server")
+        del calls
+        for i, ((fen, found), (status, body, _)) in enumerate(zip(expect, answers)):
+            if found and not (status == 200 and body["success"] and body["fen"] == body["FEN"] == fen
+                              and len(body["confidence_scores"]) == 64):
+                fail(f"/cv_algo/ post {i}: {status} {body.get('fen')!r}, process_batch gave {fen!r}")
+            if not found and not (status == 400 and body["error"] == "No chessboard detected"):
+                fail(f"/cv_algo/ post {i}: {status} {body}, process_batch found no board")
+        status, body, _ = answers[-1]
+        if status != 400 or "Invalid image" not in body["error"]:
+            fail(f"undecodable post answered {status} {body}")
+        ok = sum(status == 200 for status, _, _ in answers)
+        log(f"[server] {len(posts)} concurrent posts: {ok} answered 200 with process_batch's FEN (one flipped), "
+            f"{len(posts) - ok - 1} no-board 400, 1 undecodable 400; batches {burst}, K1 launches {launches}")
+        status, body = http_json(port, "/feedback/", {"id": answers[0][1].get("id", "x"), "position": {"a1": "R"}})
+        stored = [json.loads(p.read_text()) for p in (Path(upload_root) / "feedback").glob("*.json")]
+        if status != 200 or len(stored) != 1 or stored[0]["position"] != {"a1": "R"}:
+            fail(f"/feedback/ answered {status} {body}, stored {stored}")
+        if http_json(port, "/feedback/", {"position": {}})[0] != 400:
+            fail("/feedback/ without an id was not refused")
+        bodies_path = os.path.join(upload_root, "bodies.json")
+        with open(bodies_path, "w") as f:
+            json.dump([p for p, (_, found) in zip(posts[:8], expect) if found], f)
+        client = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-client", str(port), bodies_path],
+                                capture_output=True, text=True, timeout=600)
+        if client.returncode != 0:
+            fail(f"the load client failed: {client.stdout[-2000:]} {client.stderr[-2000:]}")
+        load = json.loads(client.stdout.strip().splitlines()[-1])
+        one_by_one = load["one_by_one_ms"]
+        log(f"[server] load from a client process: one request at a time p50 {percentile(one_by_one, 0.5):.2f} ms, "
+            f"p90 {percentile(one_by_one, 0.9):.2f} ms -> {1e3 / percentile(one_by_one, 0.5):.1f} requests/s; "
+            f"16 at once, 4 rounds: requests/s {[round(r['requests_per_s'], 1) for r in load['rounds']]}, "
+            f"request p50 ms {[round(r['p50_ms'], 2) for r in load['rounds']]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        shutil.rmtree(upload_root, ignore_errors=True)
+        del engine.process_batch  # the counting wrapper; the method is back
+
+    # the micro-batcher alone, in the persisting mode's shape: boards come back
+    held = HoldFirst(engine)
+    batcher = _MicroBatcher(held, include_board=True)
+    first = threading.Thread(target=batcher.submit, args=(frames8[7], False))
+    first.start()
+    deadline = time.time() + 60
+    while not held.sizes and time.time() < deadline:
+        time.sleep(0.005)
+    results: dict[int, tuple] = {}
+    threads = []
+    for i in range(5):  # queued one after the other, so the batch's order is known
+        th = threading.Thread(target=lambda i=i: results.update({i: batcher.submit(frames8[i], False)}))
+        th.start()
+        threads.append(th)
+        while batcher.q.qsize() <= i and time.time() < deadline:
+            time.sleep(0.005)
+    held.release.set()
+    for th in [first, *threads]:
+        th.join(timeout=300)
+    if held.sizes != [1, 8] or sorted(results) != list(range(5)):
+        fail(f"micro-batcher: batches {held.sizes}, answers {sorted(results)}; expected [1, 8] and 5 answers")
+    padded = np.concatenate([frames8[:5], np.repeat(frames8[4:5], 3, axis=0)])
+    ref = engine.process_batch(padded, lite=True, include_board=True)
+    for i in range(5):
+        found, fen, conf, board = results[i]
+        if found != bool(ref.board_found[i]) or fen != ref.fens[i]:
+            fail(f"micro-batcher submit {i}: found/FEN differ from process_batch")
+        if found and not np.array_equal(board, ref.board_image[i]):
+            fail(f"micro-batcher submit {i}: board differs from process_batch(...).board_image")
+    log(f"[server] micro-batcher alone: 5 submits behind a held one ran as batches {held.sizes}; found, FENs and "
+        f"boards equal process_batch's")
+    return launches, errs
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true", help="also print stage times, device busy share and peak memory")
+    ap.add_argument("--load-client", nargs=2, metavar=("PORT", "BODIES"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.load_client:  # the server phase's own child process
+        return load_client(int(args.load_client[0]), args.load_client[1])
 
     import torch
 
@@ -314,12 +679,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from chessvision_tpu_torch import cuda_build
+    from chessvision_tpu_torch import constants, cuda_build, profiling
     from chessvision_tpu_torch import engine as engine_mod
     from chessvision_tpu_torch.core import ChessVision
     from chessvision_tpu_torch.ops import hat_resample as k1
     from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
-    from chessvision_tpu_torch.synthetic import board_frames
+    from chessvision_tpu_torch.synthetic import board_frames, limit_chroma
 
     t_start = time.perf_counter()
     dev_name = torch.cuda.get_device_name(0)
@@ -436,15 +801,15 @@ def main() -> int:
 
     # -- 5. numbers ---------------------------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    t128 = host_ms(lambda: engine.process_batch(frames128), iters=5)
+    t128 = profiling.wall_ms(engine.process_batch, frames128, iters=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     x128 = torch.from_numpy(frames128).cuda()
-    dev128 = host_ms(lambda: engine.run_device(x128), iters=5)
+    dev128 = profiling.wall_ms(engine.run_device, x128, iters=5)
     one = frames8[:1]
     lat_full, lat_lite = [], []
     for _ in range(40):  # interleaved, so drift hits both alike
-        lat_full += host_ms(lambda: engine.process_batch(one), iters=1)
-        lat_lite += host_ms(lambda: engine.process_batch(one, lite=True), iters=1)
+        lat_full += profiling.wall_ms(engine.process_batch, one, iters=1)
+        lat_lite += profiling.wall_ms(lambda: engine.process_batch(one, lite=True), iters=1)
     log(f"[numbers] {card}")
     log(f"[numbers] B={bsz} bf16 process_batch: median {percentile(t128, 0.5):.2f} ms -> "
         f"{bsz * 1e3 / percentile(t128, 0.5):.1f} boards/s (frames from host memory to FENs); "
@@ -466,12 +831,23 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del x_chunk
         for name, frames in ((f"B={bsz}", frames128), ("B=1", one)):
-            stages, total = stage_breakdown(engine, frames, iters=3)
+            stages, total = profiling.stage_breakdown(engine, frames, iters=3)
             log(f"[stages] {name} process_batch {total:.2f} ms (stages synchronized): "
                 + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-            busy, wall, table = device_busy(engine, frames)
+            busy, wall, table = profiling.device_busy(lambda: engine.process_batch(frames))
             log(f"[profile] {name} process_batch: device busy {busy:.2f} ms of {wall:.2f} ms wall "
                 f"({100 * busy / wall:.1f}%), top ops by device time\n{table}")
+
+    # -- 6–9. the serving path -------------------------------------------------------------------
+    phase_codecs(engine, engine_mod, constants, frames8, limit_chroma(frames8))
+    launches_stream, errs_stream = phase_stream(engine, engine_mod, k1, frames128, args.profile)
+    launches_yolo, errs_yolo = phase_yolo(k1, frames8)
+    launches_server, errs_server = phase_server(k1, frames8)
+    errs_serving = {**errs_stream, **errs_yolo, **errs_server}
+    log(f"[k1] max |kernel - plain| on the serving paths' inputs: {json.dumps(errs_serving)}")
+    worst = max(worst, *(e for case in errs_serving.values() for e in case.values()))
+    log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
+        f"yolo {launches_yolo}, server {launches_server}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
     cv32 = ChessVision(device="cuda", dtype=torch.float32)
@@ -485,7 +861,7 @@ def main() -> int:
         "route": "cuda",
         "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
-        "launches": launches,
+        "launches": launches + launches_stream + launches_yolo + launches_server,
         "max_abs_err": worst,
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],

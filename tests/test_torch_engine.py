@@ -358,8 +358,11 @@ def test_package_never_imports_jax() -> None:
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'chessvision_tpu')]\n"
         "print(len([m for m in sys.modules if m.startswith('chessvision_tpu_torch')]), bad)\n"
+        "print(sorted(m for m in sys.modules if m.startswith('chessvision_tpu_torch')))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 20
+    for name in ("serve.server", "serve.webroot_server", "models.yolo", "profiling"):
+        assert f"'chessvision_tpu_torch.{name}'" in out.stdout
