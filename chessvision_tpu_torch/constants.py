@@ -3,14 +3,26 @@
 The port's own copy of the values the image→FEN path needs from
 ``chessvision_tpu/constants.py`` (same label order, sizes and square
 tables, so results compare one to one).  Weights resolve to the
-checkout's ``weights/`` directory.
+checkout's ``weights/`` directory; the datasets to ``CVTPU_DATA_ROOT`` when
+it is set, else the checkout's ``data/``, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def data_root() -> Path:
+    """The dataset root: ``CVTPU_DATA_ROOT``, else ``<checkout>/data``,
+    read when called."""
+    env = os.getenv("CVTPU_DATA_ROOT")
+    return Path(env) if env else REPO_ROOT / "data"
+
+
+DATA_ROOT = data_root()
 
 NUM_CLASSES = 13
 

@@ -1,7 +1,8 @@
 """ResNet18 piece classifier, the PyTorch counterpart of
 ``chessvision_tpu/models/resnet.py``: 7×7/2 stem (pad 3), 3×3/2 max pool
 (pad 1), BasicBlock stages with a 1×1/2 ``down_conv`` where the shape
-changes, spatial mean, then ``fc`` in float32.  Submodule names follow
+changes, spatial mean (the features that ``return_features`` also returns), then
+``fc`` in float32.  Submodule names follow
 the Flax names.  NHWC (N, 64, 64, 1) in, (N, 13) float32 logits out.
 """
 
@@ -59,13 +60,17 @@ class ResNet(nn.Module):
                 cin = channels
         self.fc = nn.Linear(cin, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, return_features: bool = False
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)
-        return self.fc(x.float().mean(dim=(2, 3)))
+        features = x.float().mean(dim=(2, 3))
+        logits = self.fc(features)
+        return (logits, features) if return_features else logits
 
 
 def resnet18(num_classes: int = 13, in_channels: int = 1, width: int = 64) -> ResNet:

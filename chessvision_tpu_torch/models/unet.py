@@ -57,7 +57,8 @@ class Up(nn.Module):
 
 class UNet(nn.Module):
     """UNet(n_channels → n_classes) over NHWC inputs in [0, 1]; returns
-    float32 NHWC logits."""
+    float32 NHWC logits, and with ``return_features`` also the pooled
+    bottleneck (B, 16·base), the collectors' embedding."""
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1, base: int = 64, bilinear: bool = False) -> None:
         super().__init__()
@@ -75,7 +76,9 @@ class UNet(nn.Module):
         self.up4 = Up(b * 2, b, b)
         self.outc = Conv2d(b, n_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, return_features: bool = False
+    ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2)
         x1 = self.inc(x)
         x2 = self.down1(x1)
@@ -86,4 +89,7 @@ class UNet(nn.Module):
         x = self.up2(x, x3)
         x = self.up3(x, x2)
         x = self.up4(x, x1)
-        return self.outc(x).float().permute(0, 2, 3, 1)
+        logits = self.outc(x).float().permute(0, 2, 3, 1)
+        if return_features:
+            return logits, x5.float().mean(dim=(2, 3))
+        return logits

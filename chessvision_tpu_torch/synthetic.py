@@ -1,14 +1,29 @@
-"""Synthetic board photos in numpy, made from a seed.
+"""Synthetic board photos in numpy, made from a seed, and datasets of them.
 
-A themed 8×8 checkerboard with disc-shaped pieces, inside a dark frame,
-warped by a known homography into a cluttered background.  Needs no cv2,
-so the port can be driven end to end anywhere; the frames are uint8 BGR
-like a camera's.
+A themed 8×8 checkerboard with disc-shaped pieces (white discs read as
+``P``, black ones as ``p``), inside a dark frame, warped by a known
+homography into a cluttered background.  The frames need no cv2, so the
+port can be driven end to end anywhere; they are uint8 BGR like a
+camera's.
+
+The dataset writers (these use cv2 to encode) lay seeded data out as the
+trainers and the evaluation read it, so neither needs ``data/``:
+``write_segmentation_dataset`` (``board_extraction/images`` + ``masks``,
+each mask the filled board quad), ``write_squares_dataset``
+(``squares/{training,validation}/<class>/``, 64² gray crops of the 13
+classes) and ``write_test_root`` (``<batch>/raw/*.JPG`` with
+``ground_truth/*.txt`` FENs).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+# class directories of the squares dataset: sorted, they give the label
+# order of constants.LABEL_NAMES
+SQUARE_CLASS_DIRS = ["B", "K", "N", "P", "Q", "R", "_b", "_k", "_n", "_p", "_q", "_r", "f"]
 
 # (light, dark) square colors, BGR
 _THEMES = [
@@ -29,8 +44,9 @@ def _homography(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return np.append(h, 1.0).reshape(3, 3)
 
 
-def _board_texture(rng: np.random.Generator, side: int) -> np.ndarray:
-    """(side, side, 3) board: a frame of side/16 px around 8×8 squares."""
+def _board_texture(rng: np.random.Generator, side: int) -> tuple[np.ndarray, str]:
+    """(side, side, 3) board: a frame of side/16 px around 8×8 squares; and
+    its FEN (white discs ``P``, black discs ``p``)."""
     light, dark = _THEMES[rng.integers(len(_THEMES))]
     frame = side // 16
     cell = (side - 2 * frame) / 8
@@ -49,7 +65,21 @@ def _board_texture(rng: np.random.Generator, side: int) -> np.ndarray:
     piece_color = np.where(white[iy, ix][..., None], 235.0, 30.0)
     tex = np.where(piece[..., None], piece_color, tex)
     tex = np.where(inside[..., None], tex, np.float32(40.0))
-    return tex
+    return tex, _fen(occupied, white)
+
+
+def _fen(occupied: np.ndarray, white: np.ndarray) -> str:
+    rows = []
+    for r in range(8):
+        row, empty = "", 0
+        for c in range(8):
+            if occupied[r, c]:
+                row += (str(empty) if empty else "") + ("P" if white[r, c] else "p")
+                empty = 0
+            else:
+                empty += 1
+        rows.append(row + (str(empty) if empty else ""))
+    return "/".join(rows)
 
 
 def _background(rng: np.random.Generator, size: int) -> np.ndarray:
@@ -66,8 +96,14 @@ def _background(rng: np.random.Generator, size: int) -> np.ndarray:
 def board_frame(rng: np.random.Generator, size: int = 512) -> tuple[np.ndarray, np.ndarray]:
     """One (size, size, 3) uint8 BGR frame and its board quad (4, 2) in
     frame pixels, corners clockwise from the top-left."""
+    img, quad, _ = board_frame_with_fen(rng, size)
+    return img, quad
+
+
+def board_frame_with_fen(rng: np.random.Generator, size: int = 512) -> tuple[np.ndarray, np.ndarray, str]:
+    """``board_frame`` and the FEN of the board's discs."""
     side = 256
-    tex = _board_texture(rng, side)
+    tex, fen = _board_texture(rng, side)
     scale = rng.uniform(0.55, 0.85) * size
     cx, cy = rng.uniform(scale / 2 + 4, size - scale / 2 - 4, 2)
     half = scale / 2
@@ -95,7 +131,7 @@ def board_frame(rng: np.random.Generator, size: int = 512) -> tuple[np.ndarray, 
     )
     img = np.where(inside[..., None], sample, _background(rng, size))
     img += rng.normal(0.0, 3.0, img.shape)
-    return np.clip(np.floor(img + 0.5), 0, 255).astype(np.uint8), quad.astype(np.float32)
+    return np.clip(np.floor(img + 0.5), 0, 255).astype(np.uint8), quad.astype(np.float32), fen
 
 
 def board_frames(seed: int, n: int, size: int = 512) -> tuple[np.ndarray, np.ndarray]:
@@ -113,3 +149,79 @@ def limit_chroma(frames: np.ndarray) -> np.ndarray:
     f = frames.astype(np.float32)
     gray = (f @ np.array([0.114, 0.587, 0.299], np.float32))[..., None]
     return np.clip(np.floor(gray + 0.5 * (f - gray) + 0.5), 0, 255).astype(np.uint8)
+
+
+def quad_mask(quad: np.ndarray, size: int) -> np.ndarray:
+    """(size, size) uint8 mask, 255 inside the convex quad (pixel centers
+    on or inside its clockwise-on-screen edges)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64) + 0.5
+    inside = np.ones((size, size), bool)
+    for i in range(4):
+        (x0, y0), (x1, y1) = quad[i], quad[(i + 1) % 4]
+        inside &= (x1 - x0) * (yy - y0) - (y1 - y0) * (xx - x0) >= 0
+    return np.where(inside, 255, 0).astype(np.uint8)
+
+
+def write_segmentation_dataset(root: str | Path, n: int, seed: int, size: int = 256) -> Path:
+    """``n`` board frames and their masks as ``root/board_extraction/
+    {images,masks}/NNNN.png``; returns ``root``."""
+    import cv2
+
+    base = Path(root) / "board_extraction"
+    (base / "images").mkdir(parents=True, exist_ok=True)
+    (base / "masks").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        img, quad, _ = board_frame_with_fen(rng, size)
+        cv2.imwrite(str(base / "images" / f"{i:04d}.png"), img)
+        cv2.imwrite(str(base / "masks" / f"{i:04d}.png"), quad_mask(quad, size))
+    return Path(root)
+
+
+def square_crop(rng: np.random.Generator, class_dir: str) -> np.ndarray:
+    """One 64² uint8 gray square of a class: a light or dark ground with the
+    piece's letter (white pieces light, black pieces dark), jittered."""
+    import cv2
+
+    img = np.full((64, 64), int(rng.uniform(90, 220)), np.uint8)
+    if class_dir != "f":
+        letter = class_dir[-1].upper()
+        color = int(rng.uniform(225, 255)) if not class_dir.startswith("_") else int(rng.uniform(0, 40))
+        scale = rng.uniform(1.2, 1.6)
+        (tw, th), _ = cv2.getTextSize(letter, cv2.FONT_HERSHEY_SIMPLEX, scale, 3)
+        org = (int((64 - tw) / 2 + rng.integers(-4, 5)), int((64 + th) / 2 + rng.integers(-4, 5)))
+        cv2.putText(img, letter, org, cv2.FONT_HERSHEY_SIMPLEX, scale, color, 3, cv2.LINE_AA)
+    noisy = img.astype(np.float32) + rng.normal(0.0, 4.0, img.shape)
+    return np.clip(np.floor(noisy + 0.5), 0, 255).astype(np.uint8)
+
+
+def write_squares_dataset(root: str | Path, n_train: int, n_val: int, seed: int) -> Path:
+    """``n_train`` and ``n_val`` squares per class as ``root/squares/
+    {training,validation}/<class>/NNNN.png``; returns ``root``."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("training", n_train), ("validation", n_val)):
+        for c in SQUARE_CLASS_DIRS:
+            d = Path(root) / "squares" / split / c
+            d.mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                cv2.imwrite(str(d / f"{i:04d}.png"), square_crop(rng, c))
+    return Path(root)
+
+
+def write_test_root(root: str | Path, n: int, seed: int, sizes: tuple[int, ...] = (512,)) -> Path:
+    """``n`` frames (sizes taken in turn) as ``root/batch0/raw/imgNN.JPG``
+    with their FENs in ``root/batch0/ground_truth/imgNN.txt``; returns
+    ``root``, the layout ``eval.evaluate.get_test_generator`` reads."""
+    import cv2
+
+    raw, truth = Path(root) / "batch0" / "raw", Path(root) / "batch0" / "ground_truth"
+    raw.mkdir(parents=True, exist_ok=True)
+    truth.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        img, _, fen = board_frame_with_fen(rng, sizes[i % len(sizes)])
+        cv2.imwrite(str(raw / f"img{i:02d}.JPG"), img)
+        (truth / f"img{i:02d}.txt").write_text(fen)
+    return Path(root)

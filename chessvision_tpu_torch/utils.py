@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 import logging
 from typing import Iterator
 
@@ -51,3 +52,24 @@ def setup_logger(name: str, level: int = logging.INFO) -> logging.Logger:
         log.addHandler(handler)
     log.setLevel(level)
     return log
+
+
+def require_single_process(*cluster_args: object) -> None:
+    """The port's trainers run in one process on one device: the
+    data-parallel path (``parallel/mesh.py`` as DDP) is not ported yet.
+    Raise on any cluster argument given and on a world size above 1."""
+    if any(a is not None for a in cluster_args):
+        raise NotImplementedError(
+            "multi-process training (--coordinator/--num-processes/--process-id) is not ported yet"
+        )
+    world = int(os.getenv("WORLD_SIZE", "1"))
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        world = max(world, torch.distributed.get_world_size())
+    if world > 1:
+        raise NotImplementedError(f"the port's trainers run in one process; world size is {world}")
+
+
+def default_train_dtype(device: torch.device) -> torch.dtype:
+    """bfloat16 convolutions on the GPU, as the JAX trainers use on the
+    TPU; float32 on the CPU."""
+    return torch.bfloat16 if device.type == "cuda" else torch.float32

@@ -1,4 +1,4 @@
-"""Flax variable trees → PyTorch ``state_dict``s.
+"""Flax variable trees ↔ PyTorch ``state_dict``s.
 
 The port's models name their submodules after the Flax modules, so a
 Flax path maps to a torch key one to one
@@ -11,10 +11,16 @@ Flax path maps to a torch key one to one
 - Dense kernel (in, out) → ``Linear.weight`` = kernel.T;
 - BatchNorm ``scale``/``bias``/``mean``/``var`` →
   ``weight``/``bias``/``running_mean``/``running_var``.
+
+``torch_to_flax`` is the exact inverse, and ``param_slots`` lists a model's
+parameters in the order ``jax.tree.leaves`` gives the Flax ``params``
+(sorted paths), with the layout change of each: the order and shapes of the
+optimizer state in a checkpoint.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
@@ -80,3 +86,86 @@ def flax_to_torch(variables: dict[str, Any], model: nn.Module, *, strict: bool =
         if key in state and tuple(state[key].shape) != tuple(buf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(state[key].shape)} != model {tuple(buf.shape)}")
     return state
+
+
+_BN_FLAX = {v: k for k, v in _BN_LEAVES.items()}
+
+
+@dataclass(frozen=True)
+class Slot:
+    """One torch parameter or buffer and its place in the Flax tree."""
+
+    collection: str  # "params" or "batch_stats"
+    path: tuple[str, ...]  # Flax path inside the collection
+    key: str  # torch state_dict key
+    kind: str  # "conv", "conv_t", "linear" or "plain": its layout change
+
+    def to_flax(self, value: np.ndarray) -> np.ndarray:
+        if self.kind == "conv":
+            return np.transpose(value, (2, 3, 1, 0))
+        if self.kind == "conv_t":
+            return np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
+        if self.kind == "linear":
+            return value.T
+        return value
+
+    def to_torch(self, value: np.ndarray) -> np.ndarray:
+        if self.kind == "conv":
+            return np.transpose(value, (3, 2, 0, 1))
+        if self.kind == "conv_t":
+            return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
+        if self.kind == "linear":
+            return value.T
+        return value
+
+
+def _slot(modules: dict[str, nn.Module], key: str) -> Slot | None:
+    owner_name, _, leaf = key.rpartition(".")
+    owner = modules[owner_name]
+    prefix = tuple(owner_name.split(".")) if owner_name else ()
+    if isinstance(owner, nn.BatchNorm2d):
+        if leaf == "num_batches_tracked":
+            return None
+        coll = "params" if leaf in ("weight", "bias") else "batch_stats"
+        return Slot(coll, (*prefix, _BN_FLAX[leaf]), key, "plain")
+    if leaf == "bias":
+        return Slot("params", (*prefix, "bias"), key, "plain")
+    if leaf != "weight":
+        raise KeyError(f"no Flax counterpart for {key}")
+    kind = (
+        "conv_t" if isinstance(owner, nn.ConvTranspose2d)
+        else "conv" if isinstance(owner, nn.Conv2d)
+        else "linear" if isinstance(owner, nn.Linear)
+        else None
+    )
+    if kind is None:
+        raise KeyError(f"no Flax counterpart for {key} of {type(owner).__name__}")
+    return Slot("params", (*prefix, "kernel"), key, kind)
+
+
+def state_slots(model: nn.Module) -> list[Slot]:
+    """Every entry of ``model.state_dict()`` with a Flax counterpart, sorted
+    by (collection, path): the order of ``jax.tree.leaves`` per collection."""
+    modules = dict(model.named_modules())
+    slots = [s for s in (_slot(modules, k) for k in model.state_dict()) if s is not None]
+    return sorted(slots, key=lambda s: (s.collection, s.path))
+
+
+def param_slots(model: nn.Module) -> list[Slot]:
+    """The trainable parameters in Flax ``params`` leaf order."""
+    return [s for s in state_slots(model) if s.collection == "params"]
+
+
+def torch_to_flax(model: nn.Module) -> dict[str, Any]:
+    """``model``'s parameters and running statistics as a Flax variable
+    tree of float32 numpy (``params`` and ``batch_stats``): the inverse of
+    ``flax_to_torch``."""
+    state = model.state_dict()
+    tree: dict[str, Any] = {}
+    for s in state_slots(model):
+        node = tree.setdefault(s.collection, {})
+        for p in s.path[:-1]:
+            node = node.setdefault(p, {})
+        value = state[s.key].detach().float().cpu().numpy()
+        node[s.path[-1]] = np.ascontiguousarray(s.to_flax(value))
+    return tree

@@ -35,16 +35,28 @@ Phases (any failure exits non-zero without the final result line):
 9. server: the HTTP server on loopback with the micro-batcher in front of
    the engine: /ping, concurrent /cv_algo/ posts (each FEN must equal
    ``process_batch``'s), a flipped and an undecodable post, /feedback/,
-   then the micro-batcher alone with boards; request latency and rate.
+   then the micro-batcher alone with boards; request latency and rate;
+10. augment: both training augmentations with every flag on at the
+   trainers' shapes (segmentation B=32 256², 4 K1 launches; classifier
+   B=256 64², 2), each K1 call held against its plain version and timed
+   beside its bounds and grid_sample;
+11. train: ``train_unet.train_model`` (UNet base 32, B=32, guard_quad) and
+   ``train_classifier.train_model`` (ResNet18 width 64, B=256), bfloat16,
+   2 epochs, augment on, on a seeded synthetic dataset; checkpoints with
+   the committed weights' keys and shapes, served by ``ChessVision``; then
+   20 timed steps of each (step ms, images/s, FLOPs from the shapes);
+12. eval: ``evaluate_model`` on 16 synthetic frames (aggregates equal
+   ``process_batch``'s own and the plain K1's), ``evaluate_segmentation``.
 
-Phases 7–9 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
 
 ``--profile`` adds stage times (device stages and the host steps of
-``process_batch``), the device's busy share, peak memory, and how much of
-``run_stream``'s upload time lies under kernels.
+``process_batch``), the device's busy share, peak memory, how much of
+``run_stream``'s upload time lies under kernels, and the device's busy
+share and top ops over 3 train steps of each trainer.
 
 Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
@@ -662,6 +674,335 @@ def phase_server(k1, frames8) -> tuple[int, dict]:
     return launches, errs
 
 
+# -- 10–12. augmentation, training and evaluation --------------------------------------------
+
+
+def seg_batch(seed: int, b: int, size: int = 256):
+    """(b, size, size, 3) float32 synthetic frames in [0, 1] and their
+    (b, size, size) board masks, on the card."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch.synthetic import board_frame, quad_mask
+
+    rng = np.random.default_rng(seed)
+    pairs = [board_frame(rng, size) for _ in range(b)]
+    imgs = np.stack([p[0] for p in pairs]).astype(np.float32) / 255.0
+    masks = np.stack([quad_mask(p[1], size) for p in pairs]).astype(np.float32) / 255.0
+    return torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda()
+
+
+def cls_batch(seed: int, b: int):
+    """(b, 64, 64, 1) float32 synthetic squares in [0, 1] and their labels,
+    on the card."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch.synthetic import SQUARE_CLASS_DIRS, square_crop
+
+    rng = np.random.default_rng(seed)
+    labels = np.arange(b) % len(SQUARE_CLASS_DIRS)
+    crops = np.stack([square_crop(rng, SQUARE_CLASS_DIRS[c]) for c in labels]).astype(np.float32) / 255.0
+    return torch.from_numpy(crops[..., None]).cuda(), torch.from_numpy(labels).cuda()
+
+
+def phase_augment(k1, seed: int) -> tuple[int, dict, dict]:
+    """Both augmentations with every flag on, at the trainers' shapes: the
+    segmentation batch (B=32, 256²: the images' 96 planes and the masks' 32
+    in two K1 calls) and the classifier batch (B=256, 64²: one call).  Every
+    call is held against the plain version and timed beside its bounds and
+    grid_sample.  Returns the launches, the errors and the times."""
+    import torch
+
+    from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch
+
+    imgs, masks = seg_batch(seed, 32)
+    squares, _ = cls_batch(seed, 256)
+    augment_segmentation_batch(seed, imgs, masks, illum_gradient=True)  # warm-up
+    augment_classification_batch(seed, squares, cutout=True, dim=True, fade=True)
+    torch.cuda.synchronize()
+    k1.launches = 0
+    (seg_out, mask_out), seg_calls = capture_k1(
+        k1, lambda: augment_segmentation_batch(seed + 1, imgs, masks, illum_gradient=True))
+    torch.cuda.synchronize()
+    seg_launches = k1.launches
+    k1.launches = 0
+    cls_out, cls_calls = capture_k1(
+        k1, lambda: augment_classification_batch(seed + 1, squares, cutout=True, dim=True, fade=True))
+    torch.cuda.synchronize()
+    cls_launches = k1.launches
+    log(f"[augment] K1 launches: segmentation B=32 {seg_launches}, classifier B=256 {cls_launches}")
+    if seg_launches != 4 or cls_launches != 2:
+        fail(f"augment: expected 4 and 2 K1 launches, got {seg_launches} and {cls_launches}")
+    for name, t, lo, hi in (("images", seg_out, 0.0, 1.0), ("masks", mask_out, 0.0, 1.0), ("squares", cls_out, 0.0, 1.0)):
+        if not (torch.isfinite(t).all() and t.min() >= lo - 1e-6 and t.max() <= hi + 1e-6):
+            fail(f"augment: {name} not finite in [{lo}, {hi}]")
+    if seg_out.shape != imgs.shape or mask_out.shape != masks.shape or cls_out.shape != squares.shape:
+        fail("augment: output shapes differ from the inputs'")
+    errs = {**check_captured(k1, seg_calls, "augment segmentation"), **check_captured(k1, cls_calls, "augment classifier")}
+    times = {
+        "segmentation": [time_k1(k1, *args, plain_iters=2) for args in seg_calls["warp_twopass"]],
+        "classifier": [time_k1(k1, *args, plain_iters=2) for args in cls_calls["warp_twopass"]],
+    }
+    for name, rows in times.items():
+        total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
+        times[name] = {"calls": rows, **total}
+        log(f"[augment] K1 at the {name} shapes {[r['shape'] for r in rows]}: {total['ms']:.4f} ms over "
+            f"{len(rows)} call(s) against the function's bound {total['bound_ms']:.4f} ms and the two-kernel "
+            f"floor {total['two_kernel_floor_ms']:.4f} ms; plain {total['plain_ms']:.3f} ms; grid_sample twice "
+            f"(cuDNN off, positions given) {total['library_ms']:.4f} ms")
+    return seg_launches + cls_launches, errs, times
+
+
+def conv_flops(model, x) -> float:
+    """Multiply-adds ×2 of every convolution and linear layer in one forward
+    of ``model`` on ``x``, from the shapes."""
+    import torch
+    from torch import nn
+
+    total = [0.0]
+
+    def hook(m, inp, out):
+        if isinstance(m, nn.ConvTranspose2d):
+            total[0] += 2.0 * inp[0].numel() * m.out_channels * m.kernel_size[0] * m.kernel_size[1] / m.groups
+        elif isinstance(m, nn.Conv2d):
+            total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+        elif isinstance(m, nn.Linear):
+            total[0] += 2.0 * out.numel() * m.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def same_keys_and_shapes(path: str, reference: str) -> list[str]:
+    """Keys whose presence or shape differ between two checkpoints, apart
+    from the optimizer leaves and the metadata."""
+    import numpy as np
+
+    def shapes(p):
+        with np.load(p) as d:
+            return {k: d[k].shape for k in d.files if not (k.startswith("opt_state/") or k == "__metadata__")}
+
+    a, b = shapes(path), shapes(reference)
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+def time_train_steps(k1, kind: str, seed: int, profile: bool = False) -> dict:
+    """20 train steps at the trainers' configuration on device-resident
+    batches, augmentation included and one host sync a step (the loss), as
+    the trainers run: step ms, images/s and K1 launches a step; with
+    ``profile``, the device's busy share over 3 more steps and the top ops."""
+    import torch
+
+    from chessvision_tpu_torch import models
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.train import steps
+    from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch, fold_in
+
+    torch.manual_seed(seed)
+    if kind == "unet":
+        model = models.UNet(base=32)
+        imgs, targets = seg_batch(seed, 32)
+        tx = steps.Chain([steps.ClipByGlobalNorm(1.0), steps.AddDecayedWeights(1e-8),
+                          steps.inject_hyperparams(steps.rmsprop, learning_rate=3e-5, momentum=0.999, eps=1e-8)])
+        train_step = steps.make_seg_train_step()
+
+        def batch(i):
+            return augment_segmentation_batch(fold_in(seed, i), imgs, targets)
+    else:
+        model = models.resnet18(width=64)
+        imgs, targets = cls_batch(seed, 256)
+        tx = steps.adam(steps.exponential_decay(1e-3, 16, 0.1, staircase=True))
+        train_step = steps.make_cls_train_step()
+
+        def batch(i):
+            return augment_classification_batch(fold_in(seed, i), imgs), targets
+
+    model = set_compute_dtype(model, torch.bfloat16, master_weights=True).cuda()
+    state = steps.TrainState.create(model, tx)
+    for i in range(3):  # warm-up: cuDNN algorithm choice
+        train_step(state, *batch(i))["loss"].item()
+    torch.cuda.synchronize()
+    iters = 20
+    k1.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(iters):
+        losses.append(train_step(state, *batch(3 + i))["loss"].item())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    launches = k1.launches
+    flops_fwd = conv_flops(model, imgs[:1]) * imgs.shape[0]
+    b = imgs.shape[0]
+    res = {
+        "kind": kind, "batch": b, "shape": list(imgs.shape), "step_ms": step_ms, "images_per_s": b * 1e3 / step_ms,
+        "k1_launches_per_step": launches / iters, "train_flops_per_step": 3 * flops_fwd,
+        "tflops_per_s": 3 * flops_fwd / step_ms / 1e9, "bf16_peak_share": 3 * flops_fwd / step_ms / 1e9 / 989.0,
+        "first_loss": losses[0], "last_loss": losses[-1],
+    }
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        fail(f"train timing {kind}: loss not finite")
+    if profile:
+        from chessvision_tpu_torch import profiling
+
+        def three_steps():
+            for i in range(3):
+                train_step(state, *batch(100 + i))["loss"].item()
+
+        busy, wall, table = profiling.device_busy(three_steps)
+        res["profile_busy_ms"], res["profile_wall_ms"] = busy, wall
+        log(f"[train] {kind} 3 steps under the profiler: device busy {busy:.2f} ms of {wall:.2f} ms wall "
+            f"({100 * busy / wall:.1f}%), top ops by device time\n{table}")
+    return res
+
+
+def phase_train(k1, seed: int, root: str, frames8, profile: bool = False) -> tuple[int, dict]:
+    """Both trainers through ``train_model`` at the shipping widths on a
+    seeded synthetic dataset (UNet base 32, B=32, 256², guard_quad, and
+    ResNet18 width 64, B=256, 64², both bfloat16, 2 epochs, augment on);
+    their checkpoints must have the committed weights' keys and shapes and
+    serve through ``ChessVision``.  Then 20 timed steps of each."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import constants
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import write_segmentation_dataset, write_squares_dataset
+    from chessvision_tpu_torch.train import data as data_lib
+    from chessvision_tpu_torch.train import train_classifier, train_unet
+
+    data_root = os.path.join(root, "data")
+    os.environ["CVTPU_DATA_ROOT"] = data_root
+    os.environ["CVTPU_STORE_ROOT"] = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    write_segmentation_dataset(data_root, 96, seed)
+    write_squares_dataset(data_root, 80, 20, seed)
+    log(f"[train] wrote 96 boards and {13 * 100} squares in {time.perf_counter() - t0:.1f} s")
+
+    results = {}
+    launches_total = 0
+    for kind, fn, kwargs, reference, per_step in (
+        ("unet", train_unet.train_model,
+         dict(epochs=2, batch_size=32, base=32, augment=True, guard_quad=True), constants.BEST_EXTRACTOR_WEIGHTS, 4),
+        ("resnet18", train_classifier.train_model,
+         dict(epochs=2, batch_size=256, width=64, augment=True), constants.BEST_CLASSIFIER_WEIGHTS, 2),
+    ):
+        k1.launches = 0
+        t0 = time.perf_counter()
+        run, ckpt = fn(run_name=f"smoke-{kind}", model_dtype=torch.bfloat16, device="cuda", seed=seed, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1.launches
+        launches_total += launches
+        scalars = run.scalars()
+        train_losses = [s["train_loss"] for s in scalars if "train_loss" in s]
+        n_train = len(data_lib.load_board_extraction().train_images) if kind == "unet" else 13 * 80
+        n_steps = 2 * (n_train // kwargs["batch_size"])
+        log(f"[train] {kind}: train_model 2 epochs in {wall:.1f} s, {n_steps} steps, train losses {train_losses}, "
+            f"best {run.parameters['best_val_score']}, K1 launches {launches}; checkpoint {ckpt}")
+        if len(train_losses) != 2 or not np.isfinite(train_losses).all():
+            fail(f"train {kind}: losses not finite: {scalars}")
+        if launches != per_step * n_steps:
+            fail(f"train {kind}: expected {per_step} K1 launches a step ({per_step * n_steps}), got {launches}")
+        diff = same_keys_and_shapes(ckpt, reference)
+        if diff:
+            fail(f"train {kind}: checkpoint keys/shapes differ from {reference}: {diff}")
+        if not run.list_metrics_tables():
+            fail(f"train {kind}: no metrics table collected")
+        results[kind] = {"wall_s": wall, "steps": n_steps, "train_losses": train_losses, "checkpoint": ckpt}
+
+    cv = ChessVision(board_extractor_weights=results["unet"]["checkpoint"],
+                     classifier_weights=results["resnet18"]["checkpoint"], device="cuda")
+    k1.launches = 0
+    res = cv.engine.process_batch(frames8)
+    launches_total += k1.launches
+    if not (res.probabilities.shape == (8, 64, 13) and np.isfinite(res.probabilities).all()
+            and np.isfinite(res.logits).all()):
+        fail("train: the trained checkpoints do not serve finite outputs")
+    log(f"[train] ChessVision on the trained checkpoints, B=8: found {int(res.board_found.sum())}/8")
+
+    for kind in ("unet", "resnet18"):
+        t = time_train_steps(k1, kind, seed, profile)
+        launches_total += int(t["k1_launches_per_step"] * 20)
+        if t["k1_launches_per_step"] != (4 if kind == "unet" else 2):
+            fail(f"train timing {kind}: K1 launches a step {t['k1_launches_per_step']}")
+        results[kind]["timing"] = t
+        log(f"[train] {kind} B={t['batch']} {t['shape']} bf16: {t['step_ms']:.2f} ms a step (augment + "
+            f"forward + backward + update + one loss sync), {t['images_per_s']:.1f} images/s; "
+            f"{t['train_flops_per_step'] / 1e9:.1f} GFLOP a step (3x forward) -> {t['tflops_per_s']:.1f} "
+            f"TFLOP/s, {100 * t['bf16_peak_share']:.1f}% of the 989 bf16 peak; loss {t['first_loss']:.4f} -> "
+            f"{t['last_loss']:.4f}")
+    return launches_total, results
+
+
+def phase_eval(k1, seed: int, root: str) -> int:
+    """``evaluate_model`` on 16 synthetic frames with the committed weights:
+    its aggregates must equal those computed from ``process_batch`` on the
+    same frames, and those with K1 swapped for its plain version.  Then
+    ``evaluate_segmentation`` on the synthetic val split (from the train
+    phase).  Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import runstore
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.eval import evaluate as ev
+    from chessvision_tpu_torch.synthetic import write_test_root
+
+    test_root = write_test_root(os.path.join(root, "test"), 16, seed)
+    cv = ChessVision(device="cuda")
+    k1.launches = 0
+    agg = ev.evaluate_model(cv_model=cv, test_root=test_root, include_metrics_table=True, batch_size=8,
+                            run=runstore.init("chessvision-testing", "smoke-eval"))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    log(f"[eval] evaluate_model 16 frames: {json.dumps(agg)}; K1 launches {launches}")
+    if launches != 6:
+        fail(f"eval: expected 6 K1 launches (2 batches of 8 + 1 warm re-dispatch), got {launches}")
+
+    items = list(ev.get_test_generator(test_root))
+    imgs = np.stack([im for im, _, _ in items])
+    want = {"extraction_failures": 0, "validation_fixes": 0, "validation_improvements": 0, "num_images": len(items)}
+    sums = {"top_1_accuracy": 0.0, "top_1_accuracy_validated": 0.0, "top_2_accuracy": 0.0, "top_3_accuracy": 0.0}
+    for start in range(0, len(items), 8):
+        res = cv.engine.process_batch(imgs[start : start + 8])
+        for bi, (_, _, fen) in enumerate(items[start : start + 8]):
+            if not res.board_found[bi]:
+                want["extraction_failures"] += 1
+                continue
+            orig = ev.compute_position_accuracy(res.original_fens[bi], fen)
+            val = ev.compute_position_accuracy(res.fens[bi], fen)
+            topk = ev.compute_model_topk_accuracy(res.probabilities[bi], fen, k=3)
+            sums["top_1_accuracy"] += topk.top_1
+            sums["top_2_accuracy"] += topk.top_2
+            sums["top_3_accuracy"] += topk.top_3
+            sums["top_1_accuracy_validated"] += val.accuracy
+            want["validation_fixes"] += len(res.validation_fixes[bi])
+            want["validation_improvements"] += int(val.accuracy > orig.accuracy)
+    n = max(len(items) - want["extraction_failures"], 1)
+    want.update({k: v / n for k, v in sums.items()})
+    got = {k: agg[k] for k in want}
+    if got != want:
+        fail(f"eval: evaluate_model aggregates {got} differ from process_batch's {want}")
+    timeless = lambda a: {k: v for k, v in a.items() if not k.startswith("avg_time")}  # noqa: E731
+    agg_plain = with_plain_k1(k1, lambda: ev.evaluate_model(cv_model=cv, test_root=test_root, batch_size=8,
+                                                            run=runstore.init("chessvision-testing", "smoke-eval-plain")))
+    if timeless(agg_plain) != timeless(agg):
+        fail(f"eval: aggregates with the plain K1 differ: {timeless(agg_plain)} vs {timeless(agg)}")
+    seg = ev.evaluate_segmentation(cv_model=cv, run=runstore.init("chessvision-testing", "smoke-seg"))
+    log(f"[eval] aggregates equal process_batch's and the plain K1's; evaluate_segmentation on the synthetic "
+        f"val split: {json.dumps(seg)}")
+    if not (0.0 <= seg["val_mask_dice"] <= 1.0 and 0.0 <= seg["val_mask_iou"] <= 1.0):
+        fail("eval: segmentation metrics out of [0, 1]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -846,8 +1187,18 @@ def main() -> int:
     errs_serving = {**errs_stream, **errs_yolo, **errs_server}
     log(f"[k1] max |kernel - plain| on the serving paths' inputs: {json.dumps(errs_serving)}")
     worst = max(worst, *(e for case in errs_serving.values() for e in case.values()))
+
+    # -- 10–12. augmentation, training, evaluation --------------------------------------------
+    launches_augment, errs_augment, k1_augment = phase_augment(k1, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+        launches_train, train_results = phase_train(k1, args.seed, root, frames8, args.profile)
+        launches_eval = phase_eval(k1, args.seed, root)
+    log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
+    worst = max(worst, *(e for case in errs_augment.values() for e in case.values()))
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
-        f"yolo {launches_yolo}, server {launches_server}")
+        f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
+        f"eval {launches_eval}")
+    log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
     cv32 = ChessVision(device="cuda", dtype=torch.float32)
@@ -861,13 +1212,16 @@ def main() -> int:
         "route": "cuda",
         "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
-        "launches": launches + launches_stream + launches_yolo + launches_server,
+        "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
+                     + launches_train + launches_eval),
         "max_abs_err": worst,
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],
         "bound_ms": k1_128["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k1_128["library_ms"],
+        "augment_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
+                           for name, t in k1_augment.items()},
     }]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

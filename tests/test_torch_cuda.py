@@ -158,3 +158,77 @@ def test_unkept_variants_equal_kept_kernels(capsys) -> None:
 
     assert k1_variants.main(["--batch", "4"]) == 0
     assert "warp_fused_ms" in capsys.readouterr().out
+
+
+def _k1_calls(fn) -> list[tuple]:
+    """The arguments of every warp_twopass call ``fn`` makes."""
+    calls = []
+    orig = hat_resample.warp_twopass
+
+    def recording(*args):
+        calls.append(args)
+        return orig(*args)
+
+    hat_resample.warp_twopass = recording
+    try:
+        fn()
+    finally:
+        hat_resample.warp_twopass = orig
+    return calls
+
+
+@pytest.mark.parametrize("kind", ["segmentation", "classifier"])
+def test_k1_at_the_augmentation_shapes_matches_plain(kind) -> None:
+    """The trainers' augmentations hand K1 256² planes (B=32: 96 image and
+    32 mask planes) and 64² squares (B=256); bit-exact as on the main path."""
+    _need_card()
+    from chessvision_tpu_torch.train import augment
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    if kind == "segmentation":
+        imgs = torch.rand((32, 256, 256, 3), generator=g).cuda()
+        masks = (torch.rand((32, 256, 256), generator=g) > 0.5).float().cuda()
+        calls = _k1_calls(lambda: augment.augment_segmentation_batch(1, imgs, masks, illum_gradient=True))
+        assert [c[0].shape for c in calls] == [(96, 256, 256), (32, 256, 256)]
+    else:
+        imgs = torch.rand((256, 64, 64, 1), generator=g).cuda()
+        calls = _k1_calls(lambda: augment.augment_classification_batch(1, imgs, cutout=True, dim=True, fade=True))
+        assert [c[0].shape for c in calls] == [(256, 64, 64)]
+    for args in calls:
+        got = hat_resample.warp_twopass(*args)
+        torch.testing.assert_close(got, hat_resample.warp_twopass_plain(*args), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["unet", "resnet18"])
+def test_one_bf16_train_step_on_the_card(kind) -> None:
+    """One bfloat16 train step per model family on the card: finite loss,
+    float32 master weights that moved, BatchNorm statistics updated."""
+    _need_card()
+    from chessvision_tpu_torch import models
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.train import steps
+
+    torch.manual_seed(0)
+    if kind == "unet":
+        model = models.UNet(base=8)
+        tx = steps.Chain([steps.ClipByGlobalNorm(1.0), steps.AddDecayedWeights(1e-8),
+                          steps.inject_hyperparams(steps.rmsprop, learning_rate=1e-3, momentum=0.999, eps=1e-8)])
+        step = steps.make_seg_train_step()
+        x = torch.rand((4, 64, 64, 3), device="cuda")
+        y = (torch.rand((4, 64, 64), device="cuda") > 0.5).float()
+    else:
+        model = models.resnet18(width=16)
+        tx = steps.adam(1e-3)
+        step = steps.make_cls_train_step()
+        x = torch.rand((32, 64, 64, 1), device="cuda")
+        y = torch.arange(32, device="cuda") % 13
+    model = set_compute_dtype(model, torch.bfloat16, master_weights=True).cuda()
+    state = steps.TrainState.create(model, tx)
+    before = [p.detach().clone() for p in state.params]
+    stats = [b.clone() for n, b in model.named_buffers() if n.endswith("running_mean")]
+    metrics = step(state, x, y)
+    assert torch.isfinite(metrics["loss"]).item()
+    assert all(p.dtype == torch.float32 for p in state.params)
+    assert any(not torch.equal(a, p.detach()) for a, p in zip(before, state.params))
+    after = [b for n, b in model.named_buffers() if n.endswith("running_mean")]
+    assert any(not torch.equal(a, b) for a, b in zip(stats, after))
