@@ -1,11 +1,13 @@
-"""chessvision-tpu on PyTorch and CUDA: the image→FEN main path for an
-NVIDIA H100.
+"""chessvision-tpu on PyTorch and CUDA for an NVIDIA H100.
 
-The port of ``chessvision_tpu`` (JAX on a TPU), which stays the reference.
-It imports torch, numpy and the standard library, never JAX or the JAX
-package.  Entry points run on the GPU unless the caller passes
-``device="cpu"``; the one TPU kernel of the path (the hat resample under
-the two-pass warp) is a hand-written CUDA kernel,
+The port of ``chessvision_tpu`` (JAX on a TPU), which stays the reference:
+the image→FEN engine and facade, the input codecs and streaming, serving,
+evaluation, both trainers (one process per GPU over ``torch.distributed``
+with ``parallel/``), ingestion, curation and the data tools.  It imports
+torch, numpy, the standard library and cv2/pyarrow where the JAX module
+does, never JAX or the JAX package.  Entry points run on the GPU unless
+the caller passes ``device="cpu"``; the one TPU kernel (the hat resample
+under the two-pass warp) is a hand-written CUDA kernel,
 ``csrc/hat_resample.cu``.
 """
 
@@ -17,6 +19,7 @@ from chessvision_tpu_torch.cv_types import (
     ChessVisionResult,
     PositionResult,
     ValidationFix,
+    ValidationMetrics,
 )
 from chessvision_tpu_torch.engine import Engine
 
@@ -29,4 +32,5 @@ __all__ = [
     "ChessVisionResult",
     "PositionResult",
     "ValidationFix",
+    "ValidationMetrics",
 ]

@@ -8,6 +8,11 @@ trainers' optimizers keep that order, ``train/steps.py``).  float16 is a
 storage format and is read back as float32.  Both packages read and write
 the same files, so a run started in one resumes in the other.  The module
 deals in numpy; ``weights.flax_to_torch`` / ``torch_to_flax`` convert.
+
+``load_checkpoint`` also reads the reference implementation's PyTorch
+``.pth`` files (a milesial UNet or a torchvision/timm ResNet18 state
+dict), converted to the same Flax variable tree the JAX package makes of
+them (``load_torch_checkpoint``).
 """
 
 from __future__ import annotations
@@ -47,8 +52,12 @@ def _unflatten(flat: dict[str, np.ndarray]) -> VariableTree:
 
 
 def load_checkpoint(path: str | Path) -> tuple[VariableTree, Metadata]:
-    """Load an ``.npz`` checkpoint: (variable tree of numpy, metadata)."""
-    with np.load(Path(path), allow_pickle=False) as data:
+    """Load a checkpoint: (variable tree of numpy, metadata).  ``.npz`` is
+    the repo's format; ``.pth``/``.pt`` the reference's."""
+    path = Path(path)
+    if path.suffix in (".pth", ".pt"):
+        return load_torch_checkpoint(path)
+    with np.load(path, allow_pickle=False) as data:
         flat = {}
         for k in data.files:
             if k == _META_KEY:
@@ -101,9 +110,12 @@ def load_opt_state_leaves(variables: VariableTree) -> list[np.ndarray] | None:
 
 
 def load_metadata(path: str | Path) -> Metadata:
-    """Only a checkpoint's metadata dict (empty if absent); the arrays are
-    not read."""
-    with np.load(Path(path), allow_pickle=False) as data:
+    """Only a checkpoint's metadata dict (empty if absent); the arrays of
+    an ``.npz`` are not read."""
+    path = Path(path)
+    if path.suffix in (".pth", ".pt"):
+        return load_torch_checkpoint(path)[1]
+    with np.load(path, allow_pickle=False) as data:
         if _META_KEY not in data.files:
             return {}
         return json.loads(bytes(data[_META_KEY].tolist()).decode("utf-8"))
@@ -134,3 +146,111 @@ def strip_checkpoint(path: str | Path, out_path: str | Path | None = None) -> Pa
     out = Path(out_path or path)
     save_checkpoint(out, variables, metadata)
     return out
+
+
+# --- the reference's .pth files -------------------------------------------------
+
+
+def _torch_state_dict(path: Path) -> tuple[dict[str, np.ndarray], Metadata]:
+    import torch
+
+    # the reference's files wrap the state dict with pickled metadata
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    metadata: Metadata = {}
+    if isinstance(obj, dict):
+        for key in ("model_state_dict", "state_dict", "model"):
+            if key in obj:
+                metadata = {k: v for k, v in obj.get("metadata", {}).items() if _jsonable(v)}
+                obj = obj[key]
+                break
+    state = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v) for k, v in obj.items()}
+    return state, metadata
+
+
+def _jsonable(v: Any) -> bool:
+    try:
+        json.dumps(v)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    """torch OIHW → Flax HWIO."""
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _convtranspose_kernel(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d (in, out, kH, kW) → Flax (kH, kW, in, out),
+    flipped in space (Flax's transposed convolution correlates)."""
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+
+
+def _bn_entries(state: dict[str, np.ndarray], torch_prefix: str) -> tuple[dict, dict]:
+    params = {"scale": state[f"{torch_prefix}.weight"], "bias": state[f"{torch_prefix}.bias"]}
+    stats = {"mean": state[f"{torch_prefix}.running_mean"], "var": state[f"{torch_prefix}.running_var"]}
+    return params, stats
+
+
+def _convert_double_conv(state: dict[str, np.ndarray], torch_prefix: str) -> tuple[dict, dict]:
+    """milesial DoubleConv: Sequential(conv, bn, relu, conv, bn, relu),
+    parameters at indices 0, 1, 3, 4."""
+    params: dict[str, Any] = {"conv1": {"kernel": _conv_kernel(state[f"{torch_prefix}.0.weight"])}}
+    stats: dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = _bn_entries(state, f"{torch_prefix}.1")
+    params["conv2"] = {"kernel": _conv_kernel(state[f"{torch_prefix}.3.weight"])}
+    params["bn2"], stats["bn2"] = _bn_entries(state, f"{torch_prefix}.4")
+    return params, stats
+
+
+def convert_unet_state_dict(state: dict[str, np.ndarray]) -> VariableTree:
+    """milesial UNet ``.pth`` state dict → the Flax UNet variable tree."""
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+    params["inc"], stats["inc"] = _convert_double_conv(state, "inc.double_conv")
+    for k in range(1, 5):
+        p, s = _convert_double_conv(state, f"down{k}.maxpool_conv.1.double_conv")
+        params[f"down{k}"], stats[f"down{k}"] = {"conv": p}, {"conv": s}
+    bilinear = "up1.up.weight" not in state
+    for k in range(1, 5):
+        p, s = _convert_double_conv(state, f"up{k}.conv.double_conv")
+        up_p: dict[str, Any] = {"conv": p}
+        if not bilinear:
+            up_p["up"] = {"kernel": _convtranspose_kernel(state[f"up{k}.up.weight"]), "bias": state[f"up{k}.up.bias"]}
+        params[f"up{k}"], stats[f"up{k}"] = up_p, {"conv": s}
+    params["outc"] = {"kernel": _conv_kernel(state["outc.conv.weight"]), "bias": state["outc.conv.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_resnet_state_dict(state: dict[str, np.ndarray]) -> VariableTree:
+    """timm/torchvision ResNet18 state dict → the Flax ResNet variable tree."""
+    params: dict[str, Any] = {"conv1": {"kernel": _conv_kernel(state["conv1.weight"])}}
+    stats: dict[str, Any] = {}
+    params["bn1"], stats["bn1"] = _bn_entries(state, "bn1")
+    for i in range(1, 5):
+        for j in range(2):
+            tp, name = f"layer{i}.{j}", f"layer{i}_{j}"
+            p: dict[str, Any] = {
+                "conv1": {"kernel": _conv_kernel(state[f"{tp}.conv1.weight"])},
+                "conv2": {"kernel": _conv_kernel(state[f"{tp}.conv2.weight"])},
+            }
+            s: dict[str, Any] = {}
+            p["bn1"], s["bn1"] = _bn_entries(state, f"{tp}.bn1")
+            p["bn2"], s["bn2"] = _bn_entries(state, f"{tp}.bn2")
+            if f"{tp}.downsample.0.weight" in state:
+                p["down_conv"] = {"kernel": _conv_kernel(state[f"{tp}.downsample.0.weight"])}
+                p["down_bn"], s["down_bn"] = _bn_entries(state, f"{tp}.downsample.1")
+            params[name], stats[name] = p, s
+    params["fc"] = {"kernel": state["fc.weight"].T, "bias": state["fc.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+def load_torch_checkpoint(path: str | Path) -> tuple[VariableTree, Metadata]:
+    """A reference ``.pth`` checkpoint as a Flax variable tree, the UNet or
+    the ResNet told apart by its keys."""
+    state, metadata = _torch_state_dict(Path(path))
+    if any(k.startswith("inc.") for k in state):
+        return convert_unet_state_dict(state), metadata
+    if "conv1.weight" in state and "layer1.0.conv1.weight" in state:
+        return convert_resnet_state_dict(state), metadata
+    raise ValueError(f"Unrecognized torch checkpoint layout: {sorted(state)[:5]} ...")

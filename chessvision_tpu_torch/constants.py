@@ -71,3 +71,15 @@ SQUARE_NAMES_FLIPPED = [
     "h8", "g8", "f8", "e8", "d8", "c8", "b8", "a8",
 ]
 # fmt: on
+
+# the dark squares of the board (a1 is dark)
+DARK_SQUARES = {
+    "a1", "c1", "e1", "g1",
+    "b2", "d2", "f2", "h2",
+    "a3", "c3", "e3", "g3",
+    "b4", "d4", "f4", "h4",
+    "a5", "c5", "e5", "g5",
+    "b6", "d6", "f6", "h6",
+    "a7", "c7", "e7", "g7",
+    "b8", "d8", "f8", "h8",
+}

@@ -32,8 +32,9 @@ from chessvision_tpu_torch.cv_types import (
 from chessvision_tpu_torch.engine import Engine, validate_labels_batch
 from chessvision_tpu_torch.models.layers import set_compute_dtype
 from chessvision_tpu_torch.ops.color import bgr_to_gray, create_binary_mask, hflip, round_u8
-from chessvision_tpu_torch.ops.quad import find_quadrangle_batch, scale_quadrangle
+from chessvision_tpu_torch.ops.quad import find_quadrangle, scale_quadrangle
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
+from chessvision_tpu_torch.parallel.mesh import Mesh
 from chessvision_tpu_torch.utils import full_f32, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -93,10 +94,14 @@ class ChessVision:
         *,
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
         model_kwargs: dict | None = None,
         refine_grid: str | None = None,
     ) -> None:
-        self.device = resolve_device(device)
+        # on a mesh (``parallel.create_mesh``) the models live on this
+        # process's device and the engine splits each batch over the ranks
+        self._mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self._board_extractor: Any = None  # (module, spec)
         self._classifier: Any = None
         # explicit weights win; None means the model id's default
@@ -147,6 +152,7 @@ class ChessVision:
                 classifier_outputs_probabilities=cl_spec.outputs_probabilities,
                 refine_grid=self._refine_grid,
                 device=self.device,
+                mesh=self._mesh,
             )
         return self._engine
 
@@ -212,12 +218,12 @@ class ChessVision:
         with torch.inference_mode(), full_f32():
             probs = torch.sigmoid(torch.as_tensor(logits, dtype=torch.float32, device=self.device))
             binary_mask = create_binary_mask(probs, threshold).cpu().numpy()
-            quad, found = find_quadrangle_batch(probs[None], threshold)
-            if not bool(found[0]):
+            quad, found = find_quadrangle(probs, threshold)
+            if not bool(found):
                 return BoardExtractionResult(
                     probabilities=logits, binary_mask=binary_mask, quadrangle=None, board_image=None
                 )
-            scaled = scale_quadrangle(quad[0], float(orig_image.shape[0]))
+            scaled = scale_quadrangle(quad, float(orig_image.shape[0]))
             dest = torch.tensor(
                 [[0.0, 0.0], [512.0, 0.0], [512.0, 512.0], [0.0, 512.0]], device=self.device
             )

@@ -57,6 +57,20 @@ class ChessVisionResult:
 
 
 @dataclass
+class ValidationMetrics:
+    """Metrics comparing position accuracy before and after validation."""
+
+    accuracy_before: float
+    accuracy_after: float
+    num_fixes: int
+    fixes: list[ValidationFix]
+
+    @property
+    def accuracy_delta(self) -> float:
+        return self.accuracy_after - self.accuracy_before
+
+
+@dataclass
 class BatchResult:
     """Host-side view of one batched engine invocation.
 

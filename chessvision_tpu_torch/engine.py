@@ -24,6 +24,10 @@ Input formats (sizes per board and rates on the card: PERF.md):
 ``run_stream`` runs any of the four over an iterator of batches with the
 upload of batch i+1 under the compute of batch i.
 
+On a mesh (``Engine(mesh=…)``, ``parallel/mesh.py``) each process runs its
+rows of the batch, padded to a multiple of the ranks, and ``host_gather``
+hands every rank the whole batch's outputs.
+
 PyTorch runs eagerly, so there is no compiled program: the pipeline is
 ``_pipeline_core`` called under ``torch.inference_mode`` with TF32 off
 (``utils.full_f32``), which keeps every float32 stage in full float32.
@@ -46,6 +50,7 @@ from chessvision_tpu_torch.ops.quad import find_quadrangle_batch, scale_quadrang
 from chessvision_tpu_torch.ops.resize import resize
 from chessvision_tpu_torch.ops.squares import extract_squares_batch
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
+from chessvision_tpu_torch.parallel import mesh as mesh_lib
 from chessvision_tpu_torch.utils import full_f32, resolve_device
 
 _BOARD_W, _BOARD_H = constants.BOARD_SIZE
@@ -168,8 +173,21 @@ def pack_inputs_yuv444(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.n
     256² chroma differences against the rounded luma downsample (offset
     128, clipped to int8) and the 4-bit green residual plane, two per
     byte.  The host mirrors the device's integer reconstruction, so the
-    residual it stores is the one the device needs."""
+    residual it stores is the one the device needs.  The native loader's
+    fused packer (``native_loader.pack_yuv444``, one pass) runs where the
+    library builds; it is bit-identical to the numpy below."""
     comp, gray = pack_inputs(images)
+    _yuv_block_factors(gray)  # the guard runs before either packer
+    from chessvision_tpu_torch import native_loader
+
+    if native_loader.has_pack_yuv444():
+        cb, cr, gres = native_loader.pack_yuv444(comp, gray)
+        return gray, cb, cr, gres
+    return (gray, *_pack_yuv444_numpy(comp, gray))
+
+
+def _pack_yuv444_numpy(comp: np.ndarray, gray: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(cb, cr, gres) of ``pack_inputs_yuv444`` in numpy."""
     fh, fw = _yuv_block_factors(gray)
     y256r = None
     if (fh, fw) == (2, 2):
@@ -204,7 +222,7 @@ def pack_inputs_yuv444(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.n
     resid = comp[..., 1].astype(np.int16) - g_pred
     e = (np.clip(resid, -8, 7) + 8).astype(np.uint8)  # (B, 256, 256) in [0, 15]
     gres = (e[..., 0::2] | (e[..., 1::2] << 4)).astype(np.uint8)  # (B, 256, 128)
-    return gray, cb, cr, gres
+    return cb, cr, gres
 
 
 def pack_inputs_yuv(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -213,12 +231,23 @@ def pack_inputs_yuv(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndar
     Cr = R − Y, offset-128 uint8, (B, 128, 128)).  The subsampled
     difference is pure integer arithmetic: round-half-up of
     (4·f2·ΣB − 4·ΣS) / (16·f2) over each 2×2 block, with ΣB the block sum
-    of the comp channel and ΣS that of the luma block sums."""
+    of the comp channel and ΣS that of the luma block sums, so the native
+    loader's packer (used where the library builds) is bit-identical."""
     comp, gray = pack_inputs(images)
     _yuv_block_factors(gray)
+    from chessvision_tpu_torch import native_loader
+
+    if native_loader.has_pack_yuv420():
+        cb, cr = native_loader.pack_yuv420(comp, gray)
+        return gray, cb, cr
+    return (gray, *_pack_yuv420_numpy(comp, gray))
+
+
+def _pack_yuv420_numpy(comp: np.ndarray, gray: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(cb, cr) of ``pack_inputs_yuv`` in numpy."""
     ih, iw = _INPUT_HW
     th, tw = ih // 2, iw // 2
-    b = len(images)
+    b = len(comp)
     sum4, f2 = _luma_block_sums(gray)
     s_l = sum4.reshape(b, th, 2, tw, 2).sum((2, 4), dtype=np.int32)  # ΣS ≤ 4·f2·255
     out = []
@@ -228,7 +257,7 @@ def pack_inputs_yuv(images: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndar
         num = 2 * (s_c * f2 - s_l) + 4 * f2
         d = num // (8 * f2)
         out.append(np.clip(d + 128, 0, 255).astype(np.uint8))
-    return gray, out[0], out[1]
+    return out[0], out[1]
 
 
 def pack_inputs(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -522,12 +551,15 @@ class _StreamUploader:
 
 
 class Engine:
-    """Batched image→FEN engine on one device.
+    """Batched image→FEN engine on one device, or over a mesh of processes.
 
     ``extractor`` maps (B, 256, 256, 3) float inputs in [0, 1] to
     (B, 256, 256, 1) logits; ``classifier`` maps (N, 64, 64, 1) squares to
     (N, 13) logits (or probabilities).  Both are moved to ``device``
-    ("cuda" by default; with no GPU, only an explicit "cpu" runs)."""
+    ("cuda" by default; with no GPU, only an explicit "cpu" runs), or to
+    the mesh's device.  ``arbitrate_chunk`` counts boards of the whole
+    batch: on a mesh its default scales by the ranks, each of which chunks
+    its own rows."""
 
     def __init__(
         self,
@@ -538,14 +570,19 @@ class Engine:
         refine_grid: str = "arbitrate",
         arbitrate_chunk: int | None = None,
         device: str | torch.device = "cuda",
+        mesh: mesh_lib.Mesh | None = None,
     ) -> None:
         if refine_grid not in ("arbitrate", "detect", "off"):
             raise ValueError(f"unknown refine_grid mode {refine_grid!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self._refine = refine_grid
-        self._arbitrate_chunk = _ARBITRATE_CHUNK if arbitrate_chunk is None else arbitrate_chunk
-        self._extractor = extractor.to(self.device).eval()
-        self._classifier = classifier.to(self.device).eval()
+        n = mesh.size if mesh is not None else 1
+        # the chunk of the whole batch, scaled by the ranks by default; each
+        # rank chunks its own rows
+        self._arbitrate_chunk = max(1, (_ARBITRATE_CHUNK * n if arbitrate_chunk is None else arbitrate_chunk) // n)
+        self._extractor = mesh_lib.replicate(mesh, extractor.to(self.device)).eval()
+        self._classifier = mesh_lib.replicate(mesh, classifier.to(self.device)).eval()
         self._cls_probs_flag = classifier_outputs_probabilities
 
     def _back_half(self, comp_f32: torch.Tensor, gray_f32: torch.Tensor, threshold: float) -> dict[str, torch.Tensor]:
@@ -565,11 +602,22 @@ class Engine:
     def _on_device(self, *arrays: Any) -> list[torch.Tensor]:
         return [torch.as_tensor(a).to(self.device) for a in arrays]
 
-    def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, torch.Tensor]:
+    def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, Any]:
         """Run the pipeline on (B, H, W, 3) uint8 frames; returns tensors on
         the engine's device (no host sync).  The front half makes the
         packed inputs on the device and hands them to ``run_packed``, so
-        raw and packed inference are bit-identical."""
+        raw and packed inference are bit-identical.
+
+        On a mesh every rank passes the same whole batch; it is padded to a
+        multiple of the ranks, each rank runs its rows, and the outputs come
+        back gathered from every rank as host numpy, on every rank."""
+        if self.mesh is not None:
+            padded, orig = mesh_lib.pad_to_multiple(np.asarray(images), self.mesh.size)
+            local = self._run_device(mesh_lib.local_rows(self.mesh, padded), threshold)
+            return {k: v[:orig] for k, v in mesh_lib.host_gather(self.mesh, local).items()}
+        return self._run_device(images, threshold)
+
+    def _run_device(self, images: np.ndarray | torch.Tensor, threshold: float) -> dict[str, torch.Tensor]:
         with torch.inference_mode(), full_f32():
             comp, gray = preprocess_images(*self._on_device(images))
         return self.run_packed(comp, gray, threshold)
@@ -656,10 +704,14 @@ class Engine:
 
         ``lite=True`` copies back only found/quadrangle/probabilities (and
         the board with ``include_board``); logits, mask and board come back
-        empty."""
+        empty.  On a mesh ``lite`` takes the full path, as in the JAX
+        package, and every rank gets the whole batch's result."""
         out = self.run_device(images, threshold)
         b = images.shape[0]
-        if lite:
+        if self.mesh is not None:
+            host = dict(out)
+            host["binary_mask"] = _binary_mask(host["logits"], threshold)
+        elif lite:
             keep = ("found", "quadrangle", "probabilities") + (("board_image",) if include_board else ())
             host = _copy_back(out, keep)
             host["logits"] = np.zeros((b, 0, 0), np.float32)

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chessvision_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_differentiable
+
 
 class Conv2d(nn.Conv2d):
     compute_dtype: torch.dtype | None = None
@@ -48,6 +50,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased variance (``nn.BatchNorm2d`` would use the unbiased one)."""
 
     flax_momentum = 0.9
+    # set by ``sync_batchnorm``: train-mode statistics over the mesh's
+    # global batch, as a batch-sharded Flax step computes them
+    mesh: Mesh | None = None
 
     def __init__(self, channels: int, eps: float = 1e-5) -> None:
         super().__init__(channels, eps=eps)
@@ -59,14 +64,39 @@ class BatchNorm2d(nn.BatchNorm2d):
         # Flax's train path op for op: the mean and the "fast" variance
         # E[x²] − E[x]² (clipped at 0) normalize, and the gradient flows
         # through the same formula
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if self.mesh is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        else:
+            mean, var = _global_moments(x, self.mesh)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+def _global_moments(x: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """E[x] and E[x²] − E[x]² per channel over every rank's rows: the sums,
+    sums of squares and counts in one differentiable all-reduce (a plain
+    one would drop the other ranks' terms of the gradient)."""
+    c = x.shape[1]
+    count = torch.full((1,), float(x.numel() // c), dtype=x.dtype, device=x.device)
+    local = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count])
+    total = all_reduce_sum_differentiable(mesh, local)
+    n = total[2 * c]
+    mean = total[:c] / n
+    return mean, torch.clamp_min(total[c : 2 * c] / n - mean * mean, 0.0)
+
+
+def sync_batchnorm(model: nn.Module, mesh: Mesh | None) -> nn.Module:
+    """Compute every BatchNorm's train-mode statistics over ``mesh`` (None:
+    over this process's batch, the layer's plain path)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
+    return model
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype, *, master_weights: bool = False) -> nn.Module:

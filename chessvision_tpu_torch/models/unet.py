@@ -1,6 +1,7 @@
 """UNet for board segmentation, the PyTorch counterpart of
-``chessvision_tpu/models/unet.py`` (``bilinear=False``): DoubleConv stem,
-4 Down stages, 4 Up stages with 2×2 stride-2 transposed convolutions and
+``chessvision_tpu/models/unet.py``: DoubleConv stem, 4 Down stages, 4 Up
+stages with 2×2 stride-2 transposed convolutions (or, with ``bilinear``,
+2× align-corners bilinear upsampling and half the deepest widths) and
 skip-first concatenation, and a 1×1 head with bias.  Submodule names
 follow the Flax module names so that ``weights.flax_to_torch`` maps the
 checkpoint one to one.  NHWC in and out, NCHW inside.
@@ -38,14 +39,44 @@ class Down(nn.Module):
         return self.conv(F.max_pool2d(x, 2))
 
 
+def _align_corners_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_out, n_in) linear interpolation matrix, align_corners=True."""
+    w = torch.zeros((n_out, n_in), dtype=torch.float32)
+    if n_in == 1:
+        w[:, 0] = 1.0
+        return w
+    coords = torch.arange(n_out, dtype=torch.float64) * (n_in - 1) / (n_out - 1)
+    lo = torch.clamp(coords.to(torch.int64), max=n_in - 2)
+    frac = (coords - lo).to(torch.float32)
+    rows = torch.arange(n_out)
+    w[rows, lo] = 1.0 - frac
+    w[rows, lo + 1] = frac
+    return w
+
+
+def _bilinear_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2× bilinear upsampling with align_corners=True as the JAX package
+    computes it: two separable matmuls with the weights in ``x``'s dtype."""
+    _, _, h, w = x.shape
+    wh = _align_corners_weights(h, 2 * h).to(x.device, x.dtype)
+    ww = _align_corners_weights(w, 2 * w).to(x.device, x.dtype)
+    x = torch.einsum("Hh,bchw->bcHw", wh, x)
+    return torch.einsum("Ww,bchw->bchW", ww, x)
+
+
 class Up(nn.Module):
-    def __init__(self, in_channels: int, skip_channels: int, out_channels: int) -> None:
+    def __init__(self, in_channels: int, skip_channels: int, out_channels: int, bilinear: bool = False) -> None:
         super().__init__()
-        self.up = ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
-        self.conv = DoubleConv(in_channels // 2 + skip_channels, out_channels)
+        self.bilinear = bilinear
+        if bilinear:
+            cat = in_channels + skip_channels
+            self.conv = DoubleConv(cat, out_channels, mid_channels=cat // 2)
+        else:
+            self.up = ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
+            self.conv = DoubleConv(in_channels // 2 + skip_channels, out_channels)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        x1 = self.up(x1)
+        x1 = _bilinear_upsample_2x(x1) if self.bilinear else self.up(x1)
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
         if dh or dw:
@@ -62,18 +93,16 @@ class UNet(nn.Module):
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1, base: int = 64, bilinear: bool = False) -> None:
         super().__init__()
-        if bilinear:
-            raise NotImplementedError("the port has the bilinear=False UNet only")
-        b = base
+        b, f = base, 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, b)
         self.down1 = Down(b, b * 2)
         self.down2 = Down(b * 2, b * 4)
         self.down3 = Down(b * 4, b * 8)
-        self.down4 = Down(b * 8, b * 16)
-        self.up1 = Up(b * 16, b * 8, b * 8)
-        self.up2 = Up(b * 8, b * 4, b * 4)
-        self.up3 = Up(b * 4, b * 2, b * 2)
-        self.up4 = Up(b * 2, b, b)
+        self.down4 = Down(b * 8, b * 16 // f)
+        self.up1 = Up(b * 16 // f, b * 8, b * 8 // f, bilinear)
+        self.up2 = Up(b * 8 // f, b * 4, b * 4 // f, bilinear)
+        self.up3 = Up(b * 4 // f, b * 2, b * 2 // f, bilinear)
+        self.up4 = Up(b * 2 // f, b, b, bilinear)
         self.outc = Conv2d(b, n_classes, 1)
 
     def forward(

@@ -213,6 +213,16 @@ def find_quadrangle_batch(
     return quad.float(), found
 
 
+def find_quadrangle(
+    probabilities: torch.Tensor, threshold: float = 0.5, k: int = NUM_DIRECTIONS, rounds: int = FLOOD_ROUNDS
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The board quadrangle of one (H, W) probability mask: ((4, 2) float32
+    in mask pixels, 0-d found flag).  The JAX package's batch is a vmap of
+    its single-mask function; here the single mask is a batch of one."""
+    quad, found = find_quadrangle_batch(probabilities[None], threshold, k, rounds)
+    return quad[0], found[0]
+
+
 def scale_quadrangle(quad: torch.Tensor, orig_h: float, mask_h: int = 256) -> torch.Tensor:
     """Mask-space quad → original-image coords.  Both axes scale by
     orig_h / mask_h — the reference's quirk of using the height for x,

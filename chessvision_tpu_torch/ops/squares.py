@@ -7,6 +7,11 @@ from __future__ import annotations
 import torch
 
 
+def extract_squares(board: torch.Tensor) -> torch.Tensor:
+    """(H, W) board → (64, H//8, W//8, 1) squares, rank-major."""
+    return extract_squares_batch(board[None])[0]
+
+
 def extract_squares_batch(boards: torch.Tensor) -> torch.Tensor:
     """(B, H, W) boards → (B, 64, H//8, W//8, 1) squares."""
     b, h, w = boards.shape

@@ -18,6 +18,15 @@ transformations over lists of tensors (the parameters in Flax leaf order,
 Each transformation's state is a flat list of tensors in the order of
 ``jax.tree.leaves`` of the optax state, so a checkpoint's
 ``opt_state/leafNNNN`` entries map one to one in both directions.
+
+The train steps take an optional ``Mesh`` (``parallel/mesh.py``): each rank
+steps on its rows of the global batch, BatchNorm computes the global
+batch's statistics, and the gradients are averaged in one bucketed
+all-reduce before the optimizer (explicitly, not through
+``DistributedDataParallel``: the optimizer here is not ``torch.optim`` and
+the step already holds the gradient list, so one flat all-reduce is all
+DDP would add), which is the global mean loss's gradient XLA's all-reduce
+gives a batch-sharded JAX step.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from chessvision_tpu_torch.models.layers import sync_batchnorm
+from chessvision_tpu_torch.parallel.mesh import Mesh, average_gradients, mean_over_mesh
 from chessvision_tpu_torch.train import losses
 from chessvision_tpu_torch.weights import Slot, flax_to_torch, param_slots, torch_to_flax
 
@@ -483,22 +494,35 @@ def restore(state: TrainState, variables: dict[str, Any]) -> None:
         state.load_opt_state_leaves(leaves)
 
 
-def _param_grads(loss: torch.Tensor, state: TrainState) -> Tensors:
-    return list(torch.autograd.grad(loss, state.params))
+def _param_grads(loss: torch.Tensor, state: TrainState, mesh: Mesh | None = None) -> Tensors:
+    """The parameters' gradients of ``loss``; on a mesh, their mean over
+    the ranks.  Each rank's loss is the mean over its rows and every rank
+    has as many rows, so the mean is the gradient of the global batch's
+    mean loss, the gradient XLA's all-reduce gives a batch-sharded step."""
+    return average_gradients(mesh, list(torch.autograd.grad(loss, state.params)))
 
 
-def make_seg_train_step() -> Callable[[TrainState, torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]:
+def _train_mode(state: TrainState, mesh: Mesh | None, train: bool) -> None:
+    state.model.train(train)
+    sync_batchnorm(state.model, mesh)
+
+
+def make_seg_train_step(
+    mesh: Mesh | None = None,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]:
     """Segmentation train step: BCE + dice on the logits, BatchNorm in train
     mode, one optimizer update.  Returns the loss and the batch's dice, on
-    the device."""
+    the device.  On a mesh each rank passes its rows of the global batch:
+    BatchNorm's statistics, the gradient (averaged before the clip) and the
+    metrics are the global batch's, equal on every rank."""
 
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor) -> dict[str, torch.Tensor]:
-        state.model.train()
+        _train_mode(state, mesh, True)
         logits = state.model(images)[..., 0]
         loss = losses.segmentation_loss(logits, masks)
-        state.apply_gradients(_param_grads(loss, state))
+        state.apply_gradients(_param_grads(loss, state, mesh))
         dice = losses.dice_coefficient(torch.sigmoid(logits.detach()), masks)
-        return {"loss": loss.detach(), "dice": dice}
+        return {"loss": mean_over_mesh(mesh, loss.detach()), "dice": mean_over_mesh(mesh, dice)}
 
     return step
 
@@ -516,19 +540,19 @@ def make_seg_eval_step() -> Callable[[TrainState, torch.Tensor, torch.Tensor], t
 
 
 def make_cls_train_step(
-    label_smoothing: float = 0.0, freeze_bn: bool = False
+    mesh: Mesh | None = None, label_smoothing: float = 0.0, freeze_bn: bool = False
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]:
     """Classifier train step: cross entropy (optional smoothing) and top-1.
     ``freeze_bn`` keeps BatchNorm on its running statistics while the
-    parameters train."""
+    parameters train.  On a mesh as ``make_seg_train_step``."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
-        state.model.train(not freeze_bn)
+        _train_mode(state, mesh, not freeze_bn)
         logits = state.model(images)
         loss = losses.cross_entropy(logits, labels, label_smoothing)
-        state.apply_gradients(_param_grads(loss, state))
+        state.apply_gradients(_param_grads(loss, state, mesh))
         acc = torch.mean((torch.argmax(logits.detach(), -1) == labels).float())
-        return {"loss": loss.detach(), "accuracy": acc}
+        return {"loss": mean_over_mesh(mesh, loss.detach()), "accuracy": mean_over_mesh(mesh, acc)}
 
     return step
 

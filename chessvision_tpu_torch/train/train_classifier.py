@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from chessvision_tpu_torch import constants
-from chessvision_tpu_torch.utils import default_train_dtype, require_single_process, resolve_device, setup_logger
+from chessvision_tpu_torch.utils import default_train_dtype, resolve_device, setup_logger
 
 logger = logging.getLogger(__name__)
 
@@ -66,22 +66,26 @@ def train_model(
     extra_weight: float = 1.0,
     device: str | torch.device = "cuda",
 ) -> tuple[Any, str]:
-    """Train; returns (run, checkpoint path).  ``use_mesh`` is accepted for
-    the JAX signature: one process has no mesh."""
+    """Train; returns (run, checkpoint path).  With ``use_mesh`` and a
+    process group the batch splits over the ranks as in
+    ``train_unet.train_model``; rank 0 owns the run and the checkpoints."""
     from chessvision_tpu_torch import models, runstore
     from chessvision_tpu_torch.checkpoint import load_checkpoint, load_metadata, save_checkpoint
     from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
     from chessvision_tpu_torch.runstore import metrics as collectors
     from chessvision_tpu_torch.train import data as data_lib
     from chessvision_tpu_torch.train import losses, steps
     from chessvision_tpu_torch.train.augment import augment_classification_batch, fold_in
 
-    require_single_process()
     dev = resolve_device(device)
     if model_dtype is None:
         model_dtype = default_train_dtype(dev)
 
-    run = runstore.init(
+    # same loop on every rank over the same seeded data order; only rank 0
+    # owns the run directory, the logs and the checkpoints
+    is_main = mesh_lib.process_index() == 0
+    run = runstore.NullRun() if not is_main else runstore.init(
         PIECE_CLASSIFICATION_PROJECT,
         run_name,
         parameters={
@@ -111,6 +115,12 @@ def train_model(
     n_train, n_val = len(data.train_labels), len(data.val_labels)
     logger.info("Training on %d / validating on %d squares", n_train, n_val)
 
+    mesh = None
+    if use_mesh and torch.distributed.is_initialized():
+        mesh = mesh_lib.create_mesh(device=dev)
+        dev = mesh.device
+        batch_size -= batch_size % mesh.size
+
     if resume:
         tc = (load_metadata(resume) or {}).get("training_config", {})
         for name, current in (("model_id", model_id), ("width", width)):
@@ -123,7 +133,7 @@ def train_model(
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model, _ = models.create_classifier(model_id, **kwargs)
-    model = set_compute_dtype(model, model_dtype, master_weights=True).to(dev)
+    model = mesh_lib.replicate(mesh, set_compute_dtype(model, model_dtype, master_weights=True).to(dev))
     rng_np = np.random.default_rng(seed)
     aug_key = fold_in(seed, "augment")
 
@@ -159,10 +169,14 @@ def train_model(
                 f"resumes). Pass --epochs > {start_epoch - 1} to fine-tune."
             )
 
-    train_step = steps.make_cls_train_step(label_smoothing=label_smoothing, freeze_bn=freeze_bn)
+    train_step = steps.make_cls_train_step(mesh, label_smoothing=label_smoothing, freeze_bn=freeze_bn)
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a global batch, on its device."""
+        return to_dev(a) if mesh is None else mesh_lib.make_global_batch(mesh, a)
 
     def collect_step(images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
         model.eval()
@@ -178,12 +192,15 @@ def train_model(
         model.eval()
         for idx in data_lib.batches(n_val, 512):
             idx, real = data_lib.pad_indices(idx, 512)
-            imgs = to_dev(data.val_images[idx].astype(np.float32)[..., None] / 255.0)
-            labs = to_dev(np.asarray(data.val_labels[idx]))
+            imgs = put(data.val_images[idx].astype(np.float32)[..., None] / 255.0)
+            labs = put(np.asarray(data.val_labels[idx]))
+            real_rows = put(np.arange(len(idx)) < real)
             with torch.no_grad():
                 logits = model(imgs)
-                loss = losses.cross_entropy(logits, labs)
-                n_ok = torch.sum((torch.argmax(logits, -1) == labs)[:real])
+                loss = mesh_lib.mean_over_mesh(mesh, losses.cross_entropy(logits, labs))
+                n_ok = torch.sum((torch.argmax(logits, -1) == labs) & real_rows)
+                if mesh is not None:
+                    n_ok = mesh.all_reduce_sum(n_ok)
             total_loss += float(loss) * real  # padded duplicates shift the loss negligibly
             correct += int(n_ok)
             total += real
@@ -237,12 +254,16 @@ def train_model(
         final_epoch = epoch
         epoch_loss, correct_sum, seen = 0.0, 0.0, 0
         for idx in data_lib.batches(n_train, batch_size, rng=rng_np, weights=weights, drop_last=True):
-            imgs = to_dev(data.train_images[idx].astype(np.float32)[..., None] / 255.0)
+            imgs = data.train_images[idx].astype(np.float32)[..., None] / 255.0
             if augment:
+                # the global batch's draws on every rank, then its rows
                 imgs = augment_classification_batch(
-                    fold_in(aug_key, global_step), imgs, cutout=cutout, dim=aug_dim, fade=aug_fade
+                    fold_in(aug_key, global_step), to_dev(imgs), cutout=cutout, dim=aug_dim, fade=aug_fade
                 )
-            labs = to_dev(np.asarray(data.train_labels[idx]))
+                imgs = mesh_lib.local_rows(mesh, imgs)
+            else:
+                imgs = put(imgs)
+            labs = put(np.asarray(data.train_labels[idx]))
             metrics = train_step(state, imgs, labs)
             if ema_params is not None:
                 ema_params = steps.ema_update(ema_params, state.params, ema_decay)
@@ -270,17 +291,20 @@ def train_model(
         if val_acc > best_val_acc:
             best_val_acc = val_acc
             patience_counter = 0
-            save_checkpoint(
-                checkpoint_path,
-                steps.checkpoint_variables(state, ema_params),
-                {"best_val_score": best_val_acc, "epoch": epoch, "training_config": training_config},
-                opt_state=state.opt_state_leaves(),
-            )
-            logger.info("Checkpoint %d saved (val acc %.4f)", epoch, best_val_acc)
+            if is_main:
+                save_checkpoint(
+                    checkpoint_path,
+                    steps.checkpoint_variables(state, ema_params),
+                    {"best_val_score": best_val_acc, "epoch": epoch, "training_config": training_config},
+                    opt_state=state.opt_state_leaves(),
+                )
+                logger.info("Checkpoint %d saved (val acc %.4f)", epoch, best_val_acc)
         else:
             patience_counter += 1
 
-        if epoch in collection_epochs:
+        if epoch in collection_epochs and mesh_lib.spans_processes(mesh):
+            logger.info("Skipping metrics collection (multi-process mesh)")
+        elif epoch in collection_epochs:
             for split, imgs_a, labs_a, ids in (
                 ("train", data.train_images, data.train_labels, data.train_ids),
                 ("val", data.val_images, data.val_labels, data.val_ids),
@@ -346,16 +370,20 @@ def get_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--extra-weight", type=float, default=1.0, help="relative sampling weight of --extra-data examples")
     parser.add_argument("--promote", action="store_true")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--coordinator", type=str, default=None, help="multi-process training: not ported yet (raises)")
-    parser.add_argument("--num-processes", type=int, default=None, help="multi-process training: not ported yet (raises)")
-    parser.add_argument("--process-id", type=int, default=None, help="multi-process training: not ported yet (raises)")
+    parser.add_argument("--coordinator", type=str, default=None, help="multi-process: coordinator host:port (tcp://)")
+    parser.add_argument("--num-processes", type=int, default=None, help="multi-process: process count")
+    parser.add_argument("--process-id", type=int, default=None, help="multi-process: this process's rank")
     return parser.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> None:
     args = get_args(argv)
     setup_logger("chessvision_tpu_torch")
-    require_single_process(args.coordinator, args.num_processes, args.process_id)
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, backend=mesh_lib.default_backend(args.device)
+    )
     run, checkpoint_path = train_model(
         model_id=args.model_id,
         epochs=args.epochs,
@@ -383,6 +411,8 @@ def main(argv: list[str] | None = None) -> None:
         extra_weight=args.extra_weight,
         device=args.device,
     )
+    if mesh_lib.process_index() != 0:
+        return  # promotion and evaluation are rank 0's
     from pathlib import Path
 
     from chessvision_tpu_torch.checkpoint import promote_checkpoint

@@ -8,8 +8,11 @@ and optimizer state in the JAX package's ``.npz`` layout, early stopping,
 optional augmentation (two-pass warp, kernel K1 on the GPU), sample-weight
 sampling, an EMA of the parameters, the quadrangle geometry guard, extra
 training data, per-sample metrics and embeddings on collection epochs.
-One process on one device (the GPU unless ``device="cpu"``); bfloat16
-convolutions over float32 master weights on the GPU.
+One process per device (the GPU unless ``device="cpu"``); bfloat16
+convolutions over float32 master weights on the GPU.  Under a process group
+(``--coordinator/--num-processes/--process-id``, or torchrun's environment)
+the batch splits over the ranks (``parallel/mesh.py``) and rank 0 owns the
+run, the logs and the checkpoints.
 
 Run: python -m chessvision_tpu_torch.train.train_unet --epochs 20 ...
 """
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from chessvision_tpu_torch import constants
-from chessvision_tpu_torch.utils import default_train_dtype, require_single_process, resolve_device, setup_logger
+from chessvision_tpu_torch.utils import default_train_dtype, resolve_device, setup_logger
 
 logger = logging.getLogger(__name__)
 
@@ -71,22 +74,27 @@ def train_model(
     guard_tolerance: float = 0.75,
     device: str | torch.device = "cuda",
 ) -> tuple[Any, str]:
-    """Train; returns (run, checkpoint path).  ``use_mesh`` is accepted for
-    the JAX signature: one process has no mesh."""
+    """Train; returns (run, checkpoint path).  With ``use_mesh`` and a
+    process group (``parallel.initialize_distributed``) every rank runs the
+    same loop over the same seeded batches and steps on its rows of each;
+    the batch size is trimmed to a multiple of the ranks."""
     from chessvision_tpu_torch import models, runstore
     from chessvision_tpu_torch.checkpoint import load_checkpoint, load_metadata, save_checkpoint
     from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
     from chessvision_tpu_torch.runstore import metrics as collectors
     from chessvision_tpu_torch.train import data as data_lib
     from chessvision_tpu_torch.train import steps
     from chessvision_tpu_torch.train.augment import augment_segmentation_batch, fold_in
 
-    require_single_process()
     dev = resolve_device(device)
     if model_dtype is None:
         model_dtype = default_train_dtype(dev)
 
-    run = runstore.init(
+    # every rank runs the same loop on the same seeded data order; only
+    # rank 0 owns the run directory, the logs and the checkpoints
+    is_main = mesh_lib.process_index() == 0
+    run = runstore.NullRun() if not is_main else runstore.init(
         BOARD_EXTRACTION_PROJECT,
         run_name,
         parameters={
@@ -118,6 +126,14 @@ def train_model(
     n_train, n_val = len(data.train_images), len(data.val_images)
     logger.info("Training on %d / validating on %d images", n_train, n_val)
 
+    mesh = None
+    if use_mesh and torch.distributed.is_initialized():
+        mesh = mesh_lib.create_mesh(device=dev)
+        dev = mesh.device
+        # equal rows on every rank: the gradient mean is then the global one
+        batch_size = max(batch_size, mesh.size)
+        batch_size -= batch_size % mesh.size
+
     if resume:
         # the architecture comes from the checkpoint; the caller's training
         # hyperparameters still apply
@@ -135,7 +151,7 @@ def train_model(
             model = models.UNet(bilinear=bilinear, base=base)
         else:
             model, _ = models.create_extractor(model_id)
-    model = set_compute_dtype(model, model_dtype, master_weights=True).to(dev)
+    model = mesh_lib.replicate(mesh, set_compute_dtype(model, model_dtype, master_weights=True).to(dev))
     rng_np = np.random.default_rng(seed)
     aug_key = fold_in(seed, "augment")
 
@@ -164,12 +180,16 @@ def train_model(
                 f"resumes). Pass --epochs > {start_epoch - 1} to fine-tune."
             )
 
-    train_step = steps.make_seg_train_step()
+    train_step = steps.make_seg_train_step(mesh)
     eval_step = steps.make_seg_eval_step()
     has_feature_tap = model_id == "unet"
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a global batch, on its device."""
+        return to_dev(a) if mesh is None else mesh_lib.make_global_batch(mesh, a)
 
     def collect_step(images: torch.Tensor, masks: torch.Tensor) -> dict[str, torch.Tensor]:
         model.eval()
@@ -190,10 +210,11 @@ def train_model(
         scores, total = [], 0
         for idx in data_lib.batches(n_val, batch_size, drop_last=False):
             idx, real = data_lib.pad_indices(idx, batch_size)
-            imgs = to_dev(data.val_images[idx].astype(np.float32) / 255.0)
-            msks = to_dev(np.asarray(data.val_masks[idx], np.float32))
+            imgs = put(data.val_images[idx].astype(np.float32) / 255.0)
+            msks = put(np.asarray(data.val_masks[idx], np.float32))
             # padded rows repeat the last sample; weight by the real count
-            scores.append(float(eval_step(state, imgs, msks)) * real)
+            dice = mesh_lib.mean_over_mesh(mesh, eval_step(state, imgs, msks))
+            scores.append(float(dice) * real)
             total += real
         return float(np.sum(scores) / total)
 
@@ -205,6 +226,8 @@ def train_model(
         from chessvision_tpu_torch.ops.quad import find_quadrangle_batch
 
         guard_bs = min(32, max(8, batch_size))
+        if mesh is not None:
+            guard_bs = max(mesh.size, guard_bs - guard_bs % mesh.size)
         quads_l, founds_l = [], []
         for idx in data_lib.batches(n_val, guard_bs, drop_last=False):
             idx, real = data_lib.pad_indices(idx, guard_bs)
@@ -222,9 +245,9 @@ def train_model(
             for idx in data_lib.batches(n_val, guard_bs, drop_last=False):
                 idx, real = data_lib.pad_indices(idx, guard_bs)
                 with torch.no_grad():
-                    logits = model(to_dev(data.val_images[idx].astype(np.float32) / 255.0))[..., 0].float()
-                    q, f = find_quadrangle_batch(torch.sigmoid(logits), threshold)
-                q, f = q.cpu().numpy()[:real], f.cpu().numpy()[:real]
+                    logits = model(put(data.val_images[idx].astype(np.float32) / 255.0))[..., 0].float()
+                    q, f = mesh_lib.host_gather(mesh, find_quadrangle_batch(torch.sigmoid(logits), threshold))
+                q, f = q[:real], f[:real]
                 sel = gt_found[idx[:real]]
                 lost += int(np.sum(sel & ~f))
                 ok = sel & f
@@ -253,11 +276,12 @@ def train_model(
         "base": base,
         "optimizer": optimizer,
     }
-    save_checkpoint(
-        checkpoint_path,
-        steps.checkpoint_variables(state),
-        {"best_val_score": float("-inf"), "training_config": training_config, "epoch": 0},
-    )
+    if is_main:
+        save_checkpoint(
+            checkpoint_path,
+            steps.checkpoint_variables(state),
+            {"best_val_score": float("-inf"), "training_config": training_config, "epoch": 0},
+        )
 
     weights = None
     if use_sample_weights:
@@ -301,12 +325,17 @@ def train_model(
         final_epoch = epoch
         epoch_loss = 0.0
         for i, idx in enumerate(data_lib.batches(n_train, batch_size, rng=rng_np, weights=weights, drop_last=True)):
-            imgs = to_dev(data.train_images[idx].astype(np.float32) / 255.0)
-            msks = to_dev(np.asarray(data.train_masks[idx], np.float32))
+            imgs = data.train_images[idx].astype(np.float32) / 255.0
+            msks = np.asarray(data.train_masks[idx], np.float32)
             if augment:
+                # every rank draws the global batch's augmentation and keeps
+                # its rows, so a mesh step sees the one-process step's batch
                 imgs, msks = augment_segmentation_batch(
-                    fold_in(aug_key, global_step), imgs, msks, illum_gradient=aug_illum_gradient
+                    fold_in(aug_key, global_step), to_dev(imgs), to_dev(msks), illum_gradient=aug_illum_gradient
                 )
+                imgs, msks = mesh_lib.local_rows(mesh, imgs), mesh_lib.local_rows(mesh, msks)
+            else:
+                imgs, msks = put(imgs), put(msks)
             metrics = train_step(state, imgs, msks)
             if ema_params is not None:
                 ema_params = steps.ema_update(ema_params, state.params, ema_decay)
@@ -347,19 +376,24 @@ def train_model(
             patience_counter = 0
             # raw params stay paired with the optimizer state; the EMA view
             # is stored separately under "ema_params"
-            save_checkpoint(
-                checkpoint_path,
-                steps.checkpoint_variables(state, ema_params),
-                {"best_val_score": best_val_score, "epoch": epoch, "training_config": training_config},
-                opt_state=state.opt_state_leaves(),
-            )
-            logger.info("Checkpoint %d saved (dice %.4f)", epoch, best_val_score)
+            if is_main:
+                save_checkpoint(
+                    checkpoint_path,
+                    steps.checkpoint_variables(state, ema_params),
+                    {"best_val_score": best_val_score, "epoch": epoch, "training_config": training_config},
+                    opt_state=state.opt_state_leaves(),
+                )
+                logger.info("Checkpoint %d saved (dice %.4f)", epoch, best_val_score)
         else:
             patience_counter += 1
 
         run.log({"train_loss": epoch_loss / steps_per_epoch, "epoch": epoch})
 
-        if epoch in collection_epochs:
+        if epoch in collection_epochs and mesh_lib.spans_processes(mesh):
+            # per-sample collection is a host-side curation pass of one
+            # process; a multi-process run skips it, as the JAX trainer does
+            logger.info("Skipping metrics collection (multi-process mesh)")
+        elif epoch in collection_epochs:
             for split, imgs_a, msks_a, ids in (
                 ("train", data.train_images, data.train_masks, data.train_ids),
                 ("val", data.val_images, data.val_masks, data.val_ids),
@@ -420,16 +454,22 @@ def get_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--guard-tolerance", type=float, default=0.75, help="allowed mean corner-error regression in px")
     parser.add_argument("--promote", action="store_true", help="copy best checkpoint to weights/")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--coordinator", type=str, default=None, help="multi-process training: not ported yet (raises)")
-    parser.add_argument("--num-processes", type=int, default=None, help="multi-process training: not ported yet (raises)")
-    parser.add_argument("--process-id", type=int, default=None, help="multi-process training: not ported yet (raises)")
+    parser.add_argument("--coordinator", type=str, default=None, help="multi-process: coordinator host:port (tcp://)")
+    parser.add_argument("--num-processes", type=int, default=None, help="multi-process: process count")
+    parser.add_argument("--process-id", type=int, default=None, help="multi-process: this process's rank")
     return parser.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> None:
     args = get_args(argv)
     setup_logger("chessvision_tpu_torch")
-    require_single_process(args.coordinator, args.num_processes, args.process_id)
+    # join the process group before the trainer looks for it (explicit
+    # flags or torchrun's environment; one plain process is a no-op)
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_lib.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id, backend=mesh_lib.default_backend(args.device)
+    )
     run, checkpoint_path = train_model(
         epochs=args.epochs,
         batch_size=args.batch_size,
@@ -455,6 +495,8 @@ def main(argv: list[str] | None = None) -> None:
         guard_tolerance=args.guard_tolerance,
         device=args.device,
     )
+    if mesh_lib.process_index() != 0:
+        return  # promotion and evaluation are rank 0's
     from pathlib import Path
 
     from chessvision_tpu_torch.checkpoint import promote_checkpoint

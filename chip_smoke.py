@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
-(``--load-client`` is the server phase's own child process.)
+(``--load-client``, ``--mesh-child`` and ``--cli-trainers`` are the
+script's own child processes.)
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -46,9 +47,23 @@ Phases (any failure exits non-zero without the final result line):
    the committed weights' keys and shapes, served by ``ChessVision``; then
    20 timed steps of each (step ms, images/s, FLOPs from the shapes);
 12. eval: ``evaluate_model`` on 16 synthetic frames (aggregates equal
-   ``process_batch``'s own and the plain K1's), ``evaluate_segmentation``.
+   ``process_batch``'s own and the plain K1's), ``evaluate_segmentation``;
+13. parallel (``parallel/mesh.py``): (a) two processes on the one card over
+   gloo (NCCL refuses two ranks on a device) each run one full-width train
+   step of the UNet (B=32 global) and the ResNet18 (B=256 global) on its
+   rows; loss, metric, parameter norm and BatchNorm statistics equal across
+   the ranks and match the one-process step; step ms beside the one-process
+   step's; (b) both trainers' command lines at world size 1 over NCCL,
+   1 epoch each, rank 0's checkpoints served by ``ChessVision``; (c)
+   ``Engine(mesh=…).process_batch`` at B=128 over two ranks equals phase
+   4's one-process result (FENs, found, quads) on every rank;
+14. data: 64 seeded 512² JPEG frames; the native loader built from
+   ``native/cvloader`` (``load_batch`` against cv2, the yuv packers
+   bit-identical to numpy, host packing ms at B=128), ``ingest.run_pipeline``
+   against a table recomputed from ``process_batch`` (images/s), and
+   ``curation.scan_image_issues``.
 
-Phases 7–10 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–14 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -1003,14 +1018,441 @@ def phase_eval(k1, seed: int, root: str) -> int:
     return launches
 
 
+# two ranks against one process.  float32 (TF32 off): the CPU test's bounds
+# (tests/test_torch_mesh.py).  bfloat16 keeps 8 significant bits (2^-8 =
+# 3.9e-3 a rounding) and cuDNN picks its algorithms by the batch (16 or 128
+# rows a rank, 32 or 256 in one process), so an output element may round
+# one step apart: bounds a few times over the differences measured on an
+# H100 (loss 1.2e-4, statistics 2.1e-4, parameter norm 6.2e-6)
+MESH_TOL = {
+    "float32": {"loss": 1e-6, "metric": 1e-6, "param_norm": 1e-6, "stats": 1e-5},
+    "bfloat16": {"loss": 1e-3, "metric": 1e-2, "param_norm": 1e-4, "stats": 2e-3},
+}
+
+
+def child_env() -> dict:
+    """The environment of the script's own child processes: the checkout
+    on the path, collectives over loopback."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    for v in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK", "CVTPU_DISTRIBUTED"):
+        env.pop(v, None)
+    return env
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(argvs: list[list[str]], timeout: int) -> list[str]:
+    """Run this script's child modes at once; fail unless all exit 0.
+    Every child is stopped before this returns."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *a], env=child_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for a in argvs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for a, proc, out in zip(argvs, procs, outs):
+        if proc.returncode != 0:
+            fail(f"child {a[:2]} exited {proc.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def parity_steps(k1, mesh, seed: int, timed: int = 5) -> dict:
+    """One train step of each trainer's model at full width (UNet base 32 on
+    B=32 global 256² frames, ResNet18 width 64 on B=256 global squares),
+    in bfloat16 over float32 master weights and in float32 (TF32 off), from
+    the seeded state, on this rank's rows of the augmented global batch
+    (every rank augments the whole batch, as the trainers do).  Records
+    loss, metric, parameter norm and BatchNorm statistics after the step,
+    K1's launches and its error against the plain version on the
+    augmentation, then the ms of ``timed`` more bfloat16 steps
+    (collectives included)."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import models
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+    from chessvision_tpu_torch.train import steps
+    from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch, fold_in
+    from chessvision_tpu_torch.utils import full_f32
+
+    out = {}
+    for kind, dtype in (("unet", torch.bfloat16), ("resnet18", torch.bfloat16), ("unet", torch.float32),
+                        ("resnet18", torch.float32)):
+        name = f"{kind} {str(dtype).split('.')[-1]}"
+        torch.manual_seed(seed)
+        if kind == "unet":
+            model = models.UNet(base=32)
+            imgs, targets = seg_batch(seed, 32)
+            tx = steps.Chain([steps.ClipByGlobalNorm(1.0), steps.AddDecayedWeights(1e-8),
+                              steps.inject_hyperparams(steps.rmsprop, learning_rate=3e-5, momentum=0.999, eps=1e-8)])
+            step, metric = steps.make_seg_train_step(mesh), "dice"
+
+            def augment(i):
+                return augment_segmentation_batch(fold_in(seed, i), imgs, targets)
+        else:
+            model = models.resnet18(width=64)
+            imgs, targets = cls_batch(seed, 256)
+            tx = steps.adam(1e-3)
+            step, metric = steps.make_cls_train_step(mesh), "accuracy"
+
+            def augment(i):
+                return augment_classification_batch(fold_in(seed, i), imgs), targets
+
+        model = mesh_lib.replicate(mesh, set_compute_dtype(model, dtype, master_weights=True).cuda())
+        state = steps.TrainState.create(model, tx)
+        k1.launches = 0
+        (x, y), calls = capture_k1(k1, lambda: augment(0))
+        torch.cuda.synchronize()
+        launches = k1.launches
+        errs = check_captured(k1, calls, f"parallel {name} augmentation")
+        with full_f32():
+            m = step(state, mesh_lib.local_rows(mesh, x), mesh_lib.local_rows(mesh, y))
+        stats = [b.detach().double().cpu().numpy().ravel() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))]
+        out[name] = {
+            "loss": float(m["loss"]), "metric": float(m[metric]),
+            "param_norm": float(np.sqrt(sum(float(torch.sum(p.detach().double() ** 2)) for p in state.params))),
+            "stats": np.concatenate(stats).tolist(), "k1_launches": launches,
+            "k1_err": max(e for case in errs.values() for e in case.values()),
+        }
+        if dtype == torch.float32:
+            continue
+        xs, ys = mesh_lib.local_rows(mesh, x), mesh_lib.local_rows(mesh, y)
+        step(state, xs, ys)["loss"].item()  # warm-up at the second step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step(state, xs, ys)["loss"].item()
+        torch.cuda.synchronize()
+        out[name]["step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+    return out
+
+
+def mesh_child(rank: int, world: int, port: int, out_dir: str, seed: int) -> int:
+    """One rank of phase 13: gloo on the one card (NCCL refuses two ranks on
+    a device; gloo's collectives go through host memory).  (a) the parity
+    steps, (c) ``Engine(mesh=…).process_batch`` at B=128 with the committed
+    weights.  Writes ``rank{rank}.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    mesh_lib.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = mesh_lib.create_mesh(device="cuda")
+    rec = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "backend": mesh.backend}
+    rec["steps"] = parity_steps(k1, mesh, seed)
+
+    uniq = board_frames(seed + 1, 32)[0]
+    frames128 = np.concatenate([uniq] * 4)
+    cv = ChessVision(device="cuda", mesh=mesh)
+    cv.engine.process_batch(frames128)  # warm-up
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    res, calls = capture_k1(k1, lambda: cv.engine.process_batch(frames128))
+    torch.cuda.synchronize()
+    rec["engine_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["engine_k1_launches"] = k1.launches
+    errs = check_captured(k1, calls, "parallel engine")
+    rec["engine_k1_err"] = max(e for case in errs.values() for e in case.values())
+    rec["engine_rows"] = [int(a.shape[0]) for a in calls["warp_twopass"][0][:1]]
+    rec["fens"], rec["found"] = list(res.fens), res.board_found.tolist()
+    np.save(os.path.join(out_dir, f"quads{rank}.npy"), res.quadrangle)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def cli_trainers_child(root: str, port: int, out_dir: str, seed: int) -> int:
+    """Phase 13(b): both trainers through their own command lines at world
+    size 1 over NCCL (``--coordinator/--num-processes/--process-id``), one
+    epoch on phase 11's dataset, K1 captured and held against its plain
+    version on one batch of each."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+    from chessvision_tpu_torch.train import train_classifier, train_unet
+
+    os.environ["CVTPU_DATA_ROOT"] = os.path.join(root, "data")
+    os.environ["CVTPU_STORE_ROOT"] = os.path.join(root, "store")
+    cluster = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"]
+    common = ["--epochs", "1", "--skip-eval", "--seed", str(seed)]
+    rec = {}
+    for kind, main_fn, argv in (
+        ("unet", train_unet.main, ["--base", "32", "--batch-size", "32", "--run-name", "mesh-unet"]),
+        ("resnet18", train_classifier.main, ["--width", "64", "--batch-size", "256", "--run-name", "mesh-resnet18"]),
+    ):
+        k1.launches = 0
+        t0 = time.perf_counter()
+        _, calls = capture_k1(k1, lambda: main_fn(argv + common + cluster))
+        torch.cuda.synchronize()
+        errs = check_captured(k1, {"warp_twopass": calls["warp_twopass"][:1], "hat_resample": []}, f"cli {kind}")
+        rec[kind] = {"wall_s": time.perf_counter() - t0, "k1_launches": k1.launches,
+                     "k1_err": max(e for case in errs.values() for e in case.values()),
+                     "backend": torch.distributed.get_backend(), "world": mesh_lib.process_count()}
+    with open(os.path.join(out_dir, "cli.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-30))
+
+
+def phase_parallel(k1, seed: int, root: str, res128, frames8) -> tuple[int, dict]:
+    """Phase 13: the data-parallel layer on the one card.  (a) two ranks
+    (gloo) against one process: a full-width train step of each trainer's
+    model; (b) both trainers' command lines at world size 1 over NCCL;
+    (c) ``Engine(mesh=…)`` at B=128 over two ranks against the one-process
+    ``process_batch`` of phase 4.  Returns K1's launches (every process's)
+    and the numbers."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.runstore import Run
+
+    out_dir = tempfile.mkdtemp(prefix="mesh-", dir=root)
+    t0 = time.perf_counter()
+    port = free_port()
+    run_children([["--mesh-child", str(r), "2", str(port), out_dir, str(seed)] for r in range(2)], timeout=900)
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    log(f"[parallel] two gloo ranks on {ranks[0]['device']} done in {time.perf_counter() - t0:.1f} s")
+    one = parity_steps(k1, None, seed)
+    launches = sum(r["steps"][k]["k1_launches"] for r in ranks for k in r["steps"])
+    launches += sum(one[k]["k1_launches"] for k in one)
+    worst = 0.0
+    res = {"steps": {}}
+    problems = []  # (a) and (c) are both read before the phase fails
+    for name in one:
+        a, b, o = ranks[0]["steps"][name], ranks[1]["steps"][name], one[name]
+        for key in ("loss", "metric", "param_norm", "stats"):
+            if a[key] != b[key]:
+                problems.append(f"(a) {name}: {key} differs between the ranks")
+        tol = MESH_TOL[name.split()[1]]
+        errs = {key: rel(a[key], o[key]) for key in tol}
+        worst = max(worst, a["k1_err"], b["k1_err"], o["k1_err"])
+        res["steps"][name] = {"errors_vs_one_process": errs, "loss": a["loss"], "metric": a["metric"]}
+        timing = ""
+        if "step_ms" in a:
+            res["steps"][name].update(mesh_step_ms=[a["step_ms"], b["step_ms"]], one_process_step_ms=o["step_ms"])
+            timing = (f"; step {a['step_ms']:.2f} / {b['step_ms']:.2f} ms a rank against {o['step_ms']:.2f} ms in one "
+                      f"process (two ranks share one card and stage every collective through host memory: no "
+                      f"scaling is measured)")
+        log(f"[parallel] (a) {name} step, 2 gloo ranks vs one process: relative errors {json.dumps(errs)} "
+            f"(bounds {json.dumps(tol)}); equal across ranks{timing}")
+        bad = {k: v for k, v in errs.items() if not v <= tol[k]}
+        if bad:
+            problems.append(f"(a) {name}: the two-rank step differs from the one-process step beyond the bounds: {bad}")
+
+    t0 = time.perf_counter()
+    run_children([["--cli-trainers", root, str(free_port()), out_dir, str(seed)]], timeout=900)
+    cli = json.load(open(os.path.join(out_dir, "cli.json")))
+    store = os.environ["CVTPU_STORE_ROOT"]
+    for kind, project in (("unet", "chessvision-segmentation"), ("resnet18", "chessvision-classification")):
+        run = Run(project, f"mesh-{kind}")
+        losses = [s["train_loss"] for s in run.scalars() if "train_loss" in s]
+        if cli[kind]["backend"] != "nccl" or cli[kind]["world"] != 1 or not (len(losses) == 1 and np.isfinite(losses).all()):
+            fail(f"parallel (b) {kind}: {cli[kind]} losses {losses}")
+        cli[kind]["train_losses"] = losses
+        cli[kind]["checkpoint"] = str(run.bulk_data_url / "checkpoint.npz")
+        launches += cli[kind]["k1_launches"]
+        worst = max(worst, cli[kind]["k1_err"])
+    cv = ChessVision(board_extractor_weights=cli["unet"]["checkpoint"],
+                     classifier_weights=cli["resnet18"]["checkpoint"], device="cuda")
+    k1.launches = 0
+    served = cv.engine.process_batch(frames8)
+    launches += k1.launches
+    if not np.isfinite(served.probabilities).all():
+        fail("parallel (b): the rank-0 checkpoints do not serve finite outputs")
+    res["cli"] = cli
+    log(f"[parallel] (b) the trainers' CLI at world size 1 over NCCL: {json.dumps(cli)} in "
+        f"{time.perf_counter() - t0:.1f} s; the checkpoints serve through ChessVision (store {store})")
+
+    engine_problems = []
+    for r in ranks:
+        quads = np.load(os.path.join(out_dir, f"quads{r['rank']}.npy"))
+        same = (r["fens"] == list(res128.fens) and r["found"] == res128.board_found.tolist()
+                and np.array_equal(quads, res128.quadrangle))
+        if not same:
+            n_fen = sum(a == b for a, b in zip(r["fens"], res128.fens))
+            engine_problems.append(f"(c) rank {r['rank']}: Engine(mesh) differs from the one-process process_batch "
+                            f"(FENs equal {n_fen}/128, found equal {r['found'] == res128.board_found.tolist()}, "
+                            f"max quad diff {float(np.abs(quads - res128.quadrangle).max())})")
+        launches += r["engine_k1_launches"]
+        worst = max(worst, r["engine_k1_err"])
+    res["engine_ms"] = [r["engine_ms"] for r in ranks]
+    log(f"[parallel] (c) Engine(mesh=2 gloo ranks).process_batch B=128 ({ranks[0]['engine_rows']} rows a rank): "
+        f"FENs, found and quads {'differ' if engine_problems else 'equal the one-process B=128 result on both ranks'}; "
+        f"{res['engine_ms'][0]:.1f} / {res['engine_ms'][1]:.1f} ms a call (gather through host memory); "
+        f"K1 launches {[r['engine_k1_launches'] for r in ranks]}")
+    problems += engine_problems
+    if not worst <= K1_TOL:
+        problems.append(f"K1 differs from its plain version by {worst}")
+    if problems:
+        fail("parallel: " + "; ".join(problems))
+    res["k1_max_abs_err"] = worst
+    return launches, res
+
+
+def phase_data(k1, seed: int, root: str, frames128) -> tuple[int, dict]:
+    """Phase 14: the data tools.  64 seeded 512² JPEG frames in a folder;
+    the native loader built from ``native/cvloader`` (a failed build fails
+    the phase where the machine has libjpeg/libpng headers): ``load_batch``
+    against cv2, the packers bit-identical to numpy and their host ms at
+    B=128; ``run_pipeline(input_folder=…)`` with the committed weights
+    against a table recomputed from ``process_batch`` on the same decoded
+    frames; ``scan_image_issues`` over the folder.  Returns K1's launches."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch import ingest, native_loader
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.curation import scan_image_issues
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    folder = os.path.join(root, "uploads")
+    os.makedirs(folder)
+    frames = board_frames(seed + 7, 64)[0]
+    paths = []
+    for i, f in enumerate(frames):
+        paths.append(os.path.join(folder, f"up{i:03d}.jpg"))
+        cv2.imwrite(paths[-1], f)
+    t0 = time.perf_counter()
+    built, why = native_loader.build_status()
+    headers = native_loader.headers_present()
+    log(f"[data] native loader: {'built' if built else 'NOT built'} in {time.perf_counter() - t0:.1f} s ({why}); "
+        f"libjpeg/libpng headers present: {headers}; decode path: {'native cvloader' if built else 'cv2'}")
+    if headers and not built:
+        fail(f"data: the machine has the headers but the native loader did not build: {why}")
+    res: dict = {"native_built": built, "why": why, "headers": headers}
+    if built:
+        batch, failures = native_loader.load_batch(paths, 512, 512, 3)
+        want = np.stack([cv2.imread(p_) for p_ in paths])
+        diff = np.abs(batch.astype(int) - want.astype(int))
+        res["load_batch_vs_cv2"] = {"mean_abs": float(diff.mean()), "share_over_8": float((diff > 8).mean()),
+                                    "max": int(diff.max())}
+        log(f"[data] load_batch 64 JPEGs vs cv2.imread (no resize at 512²): {json.dumps(res['load_batch_vs_cv2'])}")
+        if failures or not (diff.mean() < 2.0 and (diff > 8).mean() < 0.01):
+            fail(f"data: load_batch differs from cv2 ({failures} failures, {res['load_batch_vs_cv2']})")
+        small, _ = native_loader.load_batch(paths[:8], 256, 256, 3)
+        want_small = np.stack([cv2.resize(cv2.imread(p_), (256, 256), interpolation=cv2.INTER_AREA) for p_ in paths[:8]])
+        d2 = np.abs(small.astype(int) - want_small.astype(int))
+        if not (d2.mean() < 2.0 and (d2 > 8).mean() < 0.01):
+            fail(f"data: load_batch at 256² differs from cv2 + INTER_AREA: mean {d2.mean()}")
+        comp, gray = engine_mod.pack_inputs(frames128)
+        for name, native, plain in (("yuv444", native_loader.pack_yuv444, engine_mod._pack_yuv444_numpy),
+                                    ("yuv420", native_loader.pack_yuv420, engine_mod._pack_yuv420_numpy)):
+            got, ref = native(comp, gray), plain(comp, gray)
+            if not all(np.array_equal(a, b) for a, b in zip(got, ref)):
+                fail(f"data: native pack_{name} is not bit-identical to numpy")
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                native(comp, gray)
+            t_native = (time.perf_counter() - t0) * 1e3 / reps
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                plain(comp, gray)
+            t_plain = (time.perf_counter() - t0) * 1e3 / reps
+            res[f"pack_{name}_ms"] = {"native": t_native, "numpy": t_plain}
+            log(f"[data] pack_{name} B=128 (after pack_inputs): native {t_native:.2f} ms, numpy {t_plain:.2f} ms "
+                f"a batch on the host; bit-identical")
+        t0 = time.perf_counter()
+        engine_mod.pack_inputs(frames128)
+        res["pack_inputs_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"[data] pack_inputs B=128 (cv2 INTER_AREA + gray, shared by both packers) {res['pack_inputs_ms']:.2f} ms")
+
+    cv = ChessVision(device="cuda")
+    cv.engine.process_batch(frames[:32])  # warm-up at the pipeline's batch
+    torch.cuda.synchronize()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    (table, run), calls = capture_k1(k1, lambda: ingest.run_pipeline(input_folder=folder, cv_model=cv, table_name="smoke"))
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    errs = check_captured(k1, {"warp_twopass": calls["warp_twopass"][:1], "hat_resample": []}, "ingest")
+    res["images_per_s"] = len(paths) / wall
+    res["k1_max_abs_err"] = max(e for case in errs.values() for e in case.values())
+    got = run.read_metrics_table("enrichment")
+    if launches != 4 or len(table) != 64 or len(got["fen"]) != 64:
+        fail(f"data: run_pipeline ran {launches} K1 launches over {len(got['fen'])} of {len(table)} rows")
+    decoded = native_loader.load_batch(paths, 512, 512)[0] if built else np.stack([cv2.imread(p_) for p_ in paths])
+    want = {k: [] for k in ("extraction_success", "fen", "probability_distribution", "mask_completeness",
+                            "quadrangle_regularity", "probability_confidence")}
+    for start in range(0, 64, 32):
+        r = cv.engine.process_batch(decoded[start : start + 32], 0.5)
+        probs = 1.0 / (1.0 + np.exp(-r.logits))
+        for bi in range(len(r.fens)):
+            found = bool(r.board_found[bi])
+            want["extraction_success"].append(int(found))
+            want["fen"].append(r.fens[bi] if found else "")
+            want["probability_distribution"].append(ingest.probability_distribution(probs[bi]))
+            want["mask_completeness"].append(ingest.mask_completeness(probs[bi]))
+            want["quadrangle_regularity"].append(ingest.quadrangle_regularity(r.quadrangle[bi] if found else None))
+            want["probability_confidence"].append(ingest.probability_confidence(probs[bi]))
+    if list(got["fen"]) != want["fen"] or list(got["extraction_success"]) != want["extraction_success"]:
+        fail("data: run_pipeline's FENs or success flags differ from process_batch's on the same frames")
+    score_err = max(float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))))
+                    for k in want if k not in ("fen", "extraction_success"))
+    if not score_err <= 1e-6:
+        fail(f"data: run_pipeline's quality scores differ from the recomputed ones by {score_err}")
+    res["score_max_abs_err"] = score_err
+    log(f"[data] run_pipeline 64 frames: {res['images_per_s']:.1f} images/s end to end (decode, engine, scores, "
+        f"table), found {int(np.sum(got['extraction_success']))}/64; FENs and flags equal process_batch's, scores "
+        f"within {score_err:.2g}; K1 launches {launches}, max |kernel - plain| {res['k1_max_abs_err']}")
+    issues = scan_image_issues(paths)
+    res["issues"] = {k: int(np.sum(v)) for k, v in issues.items() if k.startswith("is_") or k == "readable"}
+    log(f"[data] scan_image_issues over the folder: {json.dumps(res['issues'])}")
+    if res["issues"]["readable"] != 64:
+        fail("data: scan_image_issues could not read every frame")
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true", help="also print stage times, device busy share and peak memory")
     ap.add_argument("--load-client", nargs=2, metavar=("PORT", "BODIES"), help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
+    ap.add_argument("--cli-trainers", nargs=4, metavar=("ROOT", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.load_client:  # the server phase's own child process
         return load_client(int(args.load_client[0]), args.load_client[1])
+    if args.mesh_child:  # one rank of the parallel phase
+        r, w, port, out, seed = args.mesh_child
+        return mesh_child(int(r), int(w), int(port), out, int(seed))
+    if args.cli_trainers:  # the parallel phase's world-size-1 trainers
+        root, port, out, seed = args.cli_trainers
+        return cli_trainers_child(root, int(port), out, int(seed))
 
     import torch
 
@@ -1193,11 +1635,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
         launches_train, train_results = phase_train(k1, args.seed, root, frames8, args.profile)
         launches_eval = phase_eval(k1, args.seed, root)
+        # -- 13–14. data parallelism, the data tools --------------------------------------------------
+        launches_parallel, parallel = phase_parallel(k1, args.seed, root, res128, frames8)
+        launches_data, data_res = phase_data(k1, args.seed, root, frames128)
+    worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"])
+    log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
+    log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
     worst = max(worst, *(e for case in errs_augment.values() for e in case.values()))
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
-        f"eval {launches_eval}")
+        f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -1213,7 +1661,7 @@ def main() -> int:
         "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
-                     + launches_train + launches_eval),
+                     + launches_train + launches_eval + launches_parallel + launches_data),
         "max_abs_err": worst,
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],

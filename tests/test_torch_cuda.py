@@ -232,3 +232,66 @@ def test_one_bf16_train_step_on_the_card(kind) -> None:
     assert any(not torch.equal(a, p.detach()) for a, p in zip(before, state.params))
     after = [b for n, b in model.named_buffers() if n.endswith("running_mean")]
     assert any(not torch.equal(a, b) for a, b in zip(stats, after))
+
+
+@pytest.mark.parametrize("kind", ["unet", "resnet18"])
+def test_world_size_one_nccl_mesh_step_equals_plain_step(kind, tmp_path) -> None:
+    """A mesh of one process over NCCL on the card: the step with its
+    collectives (BatchNorm sums, the gradient all-reduce, the metric
+    means) equals the step without a mesh from the same state and batch,
+    float32, to 1e-5 relative (BatchNorm's sums divided by the count
+    against its means)."""
+    _need_card()
+    import torch.distributed as dist
+
+    from chessvision_tpu_torch import models
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+    from chessvision_tpu_torch.train import steps
+
+    def state_and_batch():
+        torch.manual_seed(0)
+        if kind == "unet":
+            model, tx = models.UNet(base=8), steps.make_optimizer("rmsprop", 1e-3, momentum=0.999, gradient_clipping=1.0)
+            gen = torch.Generator().manual_seed(1)
+            x, y = torch.rand((8, 64, 64, 3), generator=gen), (torch.rand((8, 64, 64), generator=gen) > 0.5).float()
+        else:
+            model, tx = models.resnet18(width=16), steps.adam(1e-3)
+            x, y = torch.rand((32, 64, 64, 1), generator=torch.Generator().manual_seed(1)), torch.arange(32) % 13
+        model = set_compute_dtype(model, torch.float32, master_weights=True).cuda()
+        return steps.TrainState.create(model, tx), x.cuda(), y.cuda()
+
+    make = steps.make_seg_train_step if kind == "unet" else steps.make_cls_train_step
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        mesh = mesh_lib.create_mesh(device="cuda")
+        assert (mesh.size, mesh.backend, mesh.comm_device.type) == (1, "nccl", "cuda")
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            s1, x, y = state_and_batch()
+            m1 = make(mesh)(s1, x, y)
+            s0, x, y = state_and_batch()
+            m0 = make()(s0, x, y)
+    finally:
+        dist.destroy_process_group()
+    for k in m0:
+        torch.testing.assert_close(m1[k], m0[k], rtol=1e-5, atol=1e-6)
+    for a, b in zip(s1.params, s0.params):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_native_packers_bit_identical_on_the_cards_machine() -> None:
+    """The port's native loader builds on the card's machine where it has
+    libjpeg/libpng headers, and its packers equal the numpy packers."""
+    _need_card()
+    from chessvision_tpu_torch import engine, native_loader
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    built, why = native_loader.build_status()
+    if not built and not native_loader.headers_present():
+        pytest.skip(f"no libjpeg/libpng headers on this machine: {why}")
+    assert built, why
+    comp, gray = engine.pack_inputs(board_frames(0, 8)[0])
+    for got, want in zip(native_loader.pack_yuv444(comp, gray), engine._pack_yuv444_numpy(comp, gray)):
+        assert np.array_equal(got, want)
+    for got, want in zip(native_loader.pack_yuv420(comp, gray), engine._pack_yuv420_numpy(comp, gray)):
+        assert np.array_equal(got, want)

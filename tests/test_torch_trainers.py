@@ -122,12 +122,12 @@ def test_unet_trainer_adopts_the_checkpoints_architecture_and_refuses_finished_r
 
 
 def test_port_trainers_refuse_more_than_one_process(monkeypatch) -> None:
+    """Multi-process training is ported (tests/test_torch_mesh.py); what
+    the trainers still refuse is a multi-process request they cannot
+    complete: a coordinator without the process count or rank."""
     from chessvision_tpu_torch.train import train_classifier
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="--num-processes"):
         ttrain.main(["--coordinator", "localhost:1234", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        train_classifier.main(["--num-processes", "2", "--device", "cpu"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
-        ttrain.train_model(device="cpu")
+    with pytest.raises(ValueError, match="--process-id"):
+        train_classifier.main(["--coordinator", "localhost:1234", "--num-processes", "2", "--device", "cpu"])
