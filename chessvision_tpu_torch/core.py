@@ -160,8 +160,14 @@ class ChessVision:
 
     def process_image(self, image: np.ndarray, threshold: float = 0.5, flip: bool = False) -> ChessVisionResult:
         """Process a raw BGR image into a validated FEN."""
-        if not isinstance(image, np.ndarray) or image.dtype != np.uint8 or image.ndim != 3:
-            raise ValueError("image must be a uint8 numpy array of shape (H, W, C)")
+        # the JAX facade's three checks, in its order and with its type and
+        # messages; raised explicitly so that ``python -O`` keeps them
+        if not isinstance(image, np.ndarray):
+            raise AssertionError("Image must be a numpy array")
+        if image.dtype != np.uint8:
+            raise AssertionError("Image must be uint8")
+        if len(image.shape) != 3:
+            raise AssertionError("Image must be 3-dimensional (H,W,C)")
         start_time = time.time()
         result = self.engine.process_batch(image[None], threshold=threshold, flip=flip)
         found = bool(result.board_found[0])

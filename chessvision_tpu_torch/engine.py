@@ -26,7 +26,9 @@ upload of batch i+1 under the compute of batch i.
 
 On a mesh (``Engine(mesh=…)``, ``parallel/mesh.py``) each process runs its
 rows of the batch, padded to a multiple of the ranks, and ``host_gather``
-hands every rank the whole batch's outputs.
+hands every rank the whole batch's outputs (a mesh of one process keeps
+them on its device).  ``run_stream`` never splits: each process streams
+its own whole batches.
 
 PyTorch runs eagerly, so there is no compiled program: the pipeline is
 ``_pipeline_core`` called under ``torch.inference_mode`` with TF32 off
@@ -603,18 +605,23 @@ class Engine:
         return [torch.as_tensor(a).to(self.device) for a in arrays]
 
     def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, Any]:
-        """Run the pipeline on (B, H, W, 3) uint8 frames; returns tensors on
-        the engine's device (no host sync).  The front half makes the
-        packed inputs on the device and hands them to ``run_packed``, so
-        raw and packed inference are bit-identical.
+        """Run the pipeline on (B, H, W, 3) uint8 frames (numpy or a tensor
+        on any device); returns tensors on the engine's device (no host
+        sync).  The front half makes the packed inputs on the device and
+        hands them to ``run_packed``, so raw and packed inference are
+        bit-identical.
 
-        On a mesh every rank passes the same whole batch; it is padded to a
-        multiple of the ranks, each rank runs its rows, and the outputs come
-        back gathered from every rank as host numpy, on every rank."""
+        On a mesh every rank passes the same whole batch; it is padded in
+        torch to a multiple of the ranks and each rank uploads and runs its
+        rows.  On a mesh of one process the outputs stay tensors on the
+        device; on a mesh that spans processes they come back gathered from
+        every rank as host numpy, on every rank (as the JAX package's do)."""
         if self.mesh is not None:
-            padded, orig = mesh_lib.pad_to_multiple(np.asarray(images), self.mesh.size)
-            local = self._run_device(mesh_lib.local_rows(self.mesh, padded), threshold)
-            return {k: v[:orig] for k, v in mesh_lib.host_gather(self.mesh, local).items()}
+            padded, orig = mesh_lib.pad_to_multiple(torch.as_tensor(images), self.mesh.size)
+            out = self._run_device(mesh_lib.local_rows(self.mesh, padded), threshold)
+            if mesh_lib.spans_processes(self.mesh):
+                out = mesh_lib.host_gather(self.mesh, out)
+            return {k: v[:orig] for k, v in out.items()}
         return self._run_device(images, threshold)
 
     def _run_device(self, images: np.ndarray | torch.Tensor, threshold: float) -> dict[str, torch.Tensor]:
@@ -665,8 +672,10 @@ class Engine:
         the upload goes through pinned staging buffers on a copy stream
         (``_StreamUploader``); on the CPU it is the same loop with plain
         tensors."""
+        # the raw kind runs the mesh-free path, as the JAX stream runs its
+        # unsharded program: every process streams its own whole batches
         run: Callable[..., dict[str, torch.Tensor]] | None = {
-            "raw": self.run_device,
+            "raw": self._run_device,
             "packed": self.run_packed,
             "yuv": self.run_yuv,
             "yuv444": self.run_yuv444,
@@ -708,10 +717,10 @@ class Engine:
         package, and every rank gets the whole batch's result."""
         out = self.run_device(images, threshold)
         b = images.shape[0]
-        if self.mesh is not None:
-            host = dict(out)
+        if mesh_lib.spans_processes(self.mesh):
+            host = dict(out)  # gathered to the host already
             host["binary_mask"] = _binary_mask(host["logits"], threshold)
-        elif lite:
+        elif lite and self.mesh is None:
             keep = ("found", "quadrangle", "probabilities") + (("board_image",) if include_board else ())
             host = _copy_back(out, keep)
             host["logits"] = np.zeros((b, 0, 0), np.float32)

@@ -4,7 +4,8 @@
 ``render_board_png`` draws a FEN as colored squares with piece letters in
 numpy and writes it with cv2 (the GPU machine has cv2 and no matplotlib;
 the JAX package draws unicode glyphs with matplotlib).  ``display_comparison``,
-the notebook helper, still uses matplotlib and imports it when called.
+the notebook helper, composes its panels with numpy and cv2 as well and
+returns the composed image; only ``show=True`` imports matplotlib.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ LIGHT = (181, 217, 240)  # BGR of #f0d9b5
 DARK = (99, 136, 181)  # BGR of #b58863
 
 
-def render_board_png(fen: str, path: str | Path, size: int = 400) -> Path:
-    """Render a board FEN to a PNG file: white pieces as dark-outlined
-    white letters, black pieces as black letters."""
+def render_board(fen: str, size: int = 400) -> np.ndarray:
+    """A board FEN drawn as a (size, size, 3) uint8 BGR image (``size``
+    rounded down to a multiple of 8): white pieces as dark-outlined white
+    letters, black pieces as black letters."""
     import cv2
 
     expanded = expand_fen(fen)
@@ -43,9 +45,16 @@ def render_board_png(fen: str, path: str | Path, size: int = 400) -> Path:
                 cv2.putText(img, letter, org, cv2.FONT_HERSHEY_SIMPLEX, scale, (255, 255, 255), 2, cv2.LINE_AA)
             else:
                 cv2.putText(img, letter, org, cv2.FONT_HERSHEY_SIMPLEX, scale, (0, 0, 0), 3, cv2.LINE_AA)
+    return img
+
+
+def render_board_png(fen: str, path: str | Path, size: int = 400) -> Path:
+    """Render a board FEN to a PNG file (``render_board``)."""
+    import cv2
+
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    cv2.imwrite(str(path), img)
+    cv2.imwrite(str(path), render_board(fen, size))
     return path
 
 
@@ -79,50 +88,65 @@ def save_eval_artifacts(
     return written
 
 
-def display_comparison(result, path: str | Path | None = None, *, image=None, show: bool = False):
-    """Side-by-side input / probability mask / binary mask / extracted board
-    / predicted position of a ``ChessVisionResult``; saved to ``path`` when
-    given; returns the matplotlib figure."""
-    import matplotlib
+PANEL = 256  # side of each panel of ``display_comparison``, in pixels
+TITLE = 24  # height of the title strip above a panel
+GAP = 8  # white space between panels
 
-    if not show:
-        matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+
+def _panel(img: np.ndarray, title: str) -> np.ndarray:
+    """``img`` (gray or BGR uint8) fitted into a white PANEL² square,
+    centered, under a title strip: (TITLE + PANEL, PANEL, 3) uint8."""
+    import cv2
+
+    if img.ndim == 2:
+        img = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
+    h, w = img.shape[:2]
+    scale = PANEL / max(h, w)
+    nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+    interp = cv2.INTER_AREA if scale < 1 else cv2.INTER_NEAREST
+    out = np.full((TITLE + PANEL, PANEL, 3), 255, np.uint8)
+    y, x = TITLE + (PANEL - nh) // 2, (PANEL - nw) // 2
+    out[y : y + nh, x : x + nw] = cv2.resize(np.ascontiguousarray(img), (nw, nh), interpolation=interp)
+    cv2.putText(out, title, (4, TITLE - 7), cv2.FONT_HERSHEY_SIMPLEX, 0.45, (0, 0, 0), 1, cv2.LINE_AA)
+    return out
+
+
+def display_comparison(result, path: str | Path | None = None, *, image=None, show: bool = False) -> np.ndarray:
+    """Side-by-side input / probability mask / binary mask / extracted board
+    / predicted position of a ``ChessVisionResult``, composed with numpy and
+    cv2 into one uint8 BGR image of (TITLE + PANEL) × (n·PANEL + (n−1)·GAP)
+    for n panels: 2, plus the input when ``image`` is given, plus the board
+    and the position when one was found.  Written to ``path`` (a PNG) when
+    given and returned; ``show=True`` also displays it with matplotlib (the
+    JAX package returns the matplotlib figure)."""
+    import cv2
 
     board = result.board_extraction
-    base = 2 + (1 if image is not None else 0)
-    n = base + (2 if result.position is not None else 0)
-    fig, axes = plt.subplots(1, n, figsize=(4 * n, 4))
-    col = 0
+    panels = []
     if image is not None:
-        axes[col].imshow(np.asarray(image)[..., ::-1])  # BGR → RGB
-        axes[col].set_title("input")
-        col += 1
+        panels.append(_panel(np.asarray(image, np.uint8), "input"))
     # .probabilities holds the raw logits: squash them for the panel
-    axes[col].imshow(1.0 / (1.0 + np.exp(-np.asarray(board.probabilities, np.float32))), cmap="viridis", vmin=0.0, vmax=1.0)
-    axes[col].set_title("segmentation probabilities")
-    axes[col + 1].imshow(board.binary_mask, cmap="gray")
-    axes[col + 1].set_title("binary mask")
+    probs = 1.0 / (1.0 + np.exp(-np.asarray(board.probabilities, np.float32)))
+    heat = cv2.applyColorMap(np.round(probs * 255).astype(np.uint8), cv2.COLORMAP_VIRIDIS)
+    panels.append(_panel(heat, "segmentation probabilities"))
+    panels.append(_panel(np.asarray(board.binary_mask, np.uint8), "binary mask"))
     if result.position is not None:
-        import tempfile
-
-        import cv2
-
-        axes[col + 2].imshow(board.board_image, cmap="gray")
-        axes[col + 2].set_title("extracted board")
-        with tempfile.TemporaryDirectory() as tmp:
-            png = render_board_png(result.position.fen, Path(tmp) / "board.png")
-            axes[col + 3].imshow(cv2.imread(str(png))[..., ::-1])
-        axes[col + 3].set_title(result.position.fen.split("/")[0] + "…")
-    for ax in axes:
-        ax.axis("off")
-    fig.tight_layout()
+        panels.append(_panel(np.asarray(board.board_image, np.uint8), "extracted board"))
+        panels.append(_panel(render_board(result.position.fen), result.position.fen.split("/")[0] + "..."))
+    gap = np.full((TITLE + PANEL, GAP, 3), 255, np.uint8)
+    row = [panels[0]]
+    for p in panels[1:]:
+        row += [gap, p]
+    composed = np.concatenate(row, axis=1)
     if path is not None:
         p = Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
-        fig.savefig(p, bbox_inches="tight")
+        cv2.imwrite(str(p), composed)
     if show:  # pragma: no cover — interactive sessions only
+        import matplotlib.pyplot as plt
+
+        plt.figure(figsize=(composed.shape[1] / 100, composed.shape[0] / 100))
+        plt.imshow(composed[..., ::-1])
+        plt.axis("off")
         plt.show()
-    else:
-        plt.close(fig)
-    return fig
+    return composed

@@ -250,14 +250,17 @@ def host_gather(mesh: Mesh | None, tree: Any) -> Any:
     return _to_numpy(mesh.all_gather(t))
 
 
-def pad_to_multiple(batch: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
+def pad_to_multiple(batch: Any, multiple: int) -> tuple[Any, int]:
     """Pad the batch axis up to a multiple by repeating the last row;
-    returns (padded, original size)."""
+    returns (padded, original size).  A tensor is padded in torch on its
+    own device, an array in numpy."""
     b = batch.shape[0]
     rem = (-b) % multiple
     if rem:
-        pad = np.repeat(batch[-1:], rem, axis=0)
-        batch = np.concatenate([batch, pad], axis=0)
+        if isinstance(batch, torch.Tensor):
+            batch = torch.cat([batch, batch[-1:].expand(rem, *batch.shape[1:])])
+        else:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], rem, axis=0)], axis=0)
     return batch, b
 
 

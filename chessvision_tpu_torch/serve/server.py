@@ -409,7 +409,7 @@ def serve(
     return server
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     from chessvision_tpu_torch.utils import setup_logger
 
     parser = argparse.ArgumentParser()
@@ -418,7 +418,7 @@ def main() -> None:
     parser.add_argument("--upload-root", type=str, default=None)
     parser.add_argument("--clean-uploads", action="store_true", help="purge + recreate the uploads tree and exit")
     parser.add_argument("--warmup", action="store_true", help="run every micro-batch size once before accepting traffic")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     setup_logger("chessvision_tpu_torch")
     if args.clean_uploads:
         clean_uploads_folder(args.upload_root or "user_uploads")

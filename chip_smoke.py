@@ -61,9 +61,15 @@ Phases (any failure exits non-zero without the final result line):
    ``native/cvloader`` (``load_batch`` against cv2, the yuv packers
    bit-identical to numpy, host packing ms at B=128), ``ingest.run_pipeline``
    against a table recomputed from ``process_batch`` (images/s), and
-   ``curation.scan_image_issues``.
+   ``curation.scan_image_issues``;
+15. launchers: the three ``examples/torch_*.py`` ``main()`` in this process
+   (FENs and found flags equal ``process_batch``'s on the same frames; the
+   streaming example's boards/s), the raw stream of a one-process
+   ``Engine(mesh=create_mesh())`` against the mesh-free stream, ``bash -n``
+   on every ``scripts/bin/torch_*.sh``, ``torch_evaluate.sh`` on phase 12's
+   test root and ``torch_serve.sh --local`` answering one post.
 
-Phases 7–10 and 13–14 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–15 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -956,12 +962,12 @@ def phase_train(k1, seed: int, root: str, frames8, profile: bool = False) -> tup
     return launches_total, results
 
 
-def phase_eval(k1, seed: int, root: str) -> int:
+def phase_eval(k1, seed: int, root: str) -> tuple[int, dict]:
     """``evaluate_model`` on 16 synthetic frames with the committed weights:
     its aggregates must equal those computed from ``process_batch`` on the
     same frames, and those with K1 swapped for its plain version.  Then
     ``evaluate_segmentation`` on the synthetic val split (from the train
-    phase).  Returns K1's launches."""
+    phase).  Returns K1's launches and the aggregates."""
     import numpy as np
     import torch
 
@@ -1015,7 +1021,7 @@ def phase_eval(k1, seed: int, root: str) -> int:
         f"val split: {json.dumps(seg)}")
     if not (0.0 <= seg["val_mask_dice"] <= 1.0 and 0.0 <= seg["val_mask_iou"] <= 1.0):
         fail("eval: segmentation metrics out of [0, 1]")
-    return launches
+    return launches, agg
 
 
 # two ranks against one process.  float32 (TF32 off): the CPU test's bounds
@@ -1437,6 +1443,199 @@ def phase_data(k1, seed: int, root: str, frames128) -> tuple[int, dict]:
     return launches, res
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module (its ``main``
+    is not run)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(k1, fn):
+    """``fn()`` with K1 captured and counted from 0 and its printed lines
+    caught: (result, captured calls, launches, lines)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    k1.launches = 0
+    with contextlib.redirect_stdout(buf):
+        result, calls = capture_k1(k1, fn)
+    torch.cuda.synchronize()
+    return result, calls, k1.launches, buf.getvalue().splitlines()
+
+
+def phase_launchers(k1, seed: int, root: str, card: str, frames8, agg12: dict) -> tuple[int, dict]:
+    """Phase 15: the launchers outside the package.  The three examples'
+    ``main()`` in this process with the committed weights in bfloat16 (the
+    quickstart and the detailed example on one synthetic frame, the
+    streaming example on 4 batches of 32), each FEN and found flag against
+    ``process_batch`` on the same frames; the raw stream of a one-process
+    ``Engine(mesh=create_mesh())`` against the mesh-free stream; ``bash
+    -n`` on every ``scripts/bin/torch_*.sh``; ``torch_evaluate.sh`` on phase
+    12's test root (its aggregates equal phase 12's) while
+    ``torch_serve.sh --local`` starts, answers one posted frame with
+    ``process_batch``'s FEN and is stopped.  Returns K1's launches (this
+    process's) and the numbers."""
+    import base64
+    import glob
+    import signal
+
+    import cv2
+    import torch
+
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.eval import render
+    from chessvision_tpu_torch.parallel.mesh import create_mesh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wrappers = sorted(glob.glob(os.path.join(here, "scripts", "bin", "torch_*.sh")))
+    if len(wrappers) != 8:
+        fail(f"launchers: expected 8 scripts/bin/torch_*.sh, found {wrappers}")
+    for path in wrappers:
+        out = subprocess.run(["bash", "-n", path], capture_output=True, text=True)
+        if out.returncode != 0:
+            fail(f"launchers: bash -n {path}: {out.stderr}")
+    log(f"[launchers] bash -n passes on {[os.path.basename(p) for p in wrappers]}")
+
+    # the two wrappers run as processes of their own, the server first so
+    # that its start lies under the evaluation
+    t0 = time.perf_counter()
+    env = child_env()
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", "")  # the wrappers run `python`
+    port = free_port()
+    server_log = open(os.path.join(root, "torch_serve.log"), "w")
+    server = subprocess.Popen(["bash", os.path.join(here, "scripts", "bin", "torch_serve.sh"), "--local"],
+                              env=dict(env, PORT=str(port)), cwd=root, stdout=server_log,
+                              stderr=subprocess.STDOUT, start_new_session=True)
+    res: dict = {}
+    evaluation = None
+    try:
+        evaluation = subprocess.Popen(
+            ["bash", os.path.join(here, "scripts", "bin", "torch_evaluate.sh"), "--test-root",
+             os.path.join(root, "test"), "--batch-size", "8"],
+            env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # the examples, in this process, while the wrappers start
+        s = seed + 1  # a synthetic frame whose board the models find (tests/test_torch_launchers.py)
+        cv = ChessVision(device="cuda")
+        launches, errs = 0, {}
+        qs = load_example("torch_quickstart")
+        _, image, _ = qs.input_image(s)
+        png = os.path.join(root, "quickstart.png")
+        got, calls, n, lines = run_example(k1, lambda: qs.main(seed=s, out=png))
+        want = cv.engine.process_batch(image[None])
+        fen = got.position.fen if got.position is not None else ""
+        n_panels = 3 + 2 * int(got.position is not None)
+        shape = (render.TITLE + render.PANEL, n_panels * render.PANEL + (n_panels - 1) * render.GAP, 3)
+        written = cv2.imread(png)
+        if n != 2 or (got.position is not None) != bool(want.board_found[0]) or fen != want.fens[0] \
+                or written is None or written.shape != shape:
+            fail(f"launchers: quickstart found={got.position is not None} fen={fen!r} K1 launches {n}, comparison "
+                 f"{None if written is None else written.shape}; process_batch found={bool(want.board_found[0])} "
+                 f"fen={want.fens[0]!r}")
+        launches += n
+        errs.update(check_captured(k1, calls, "quickstart"))
+        log(f"[launchers] torch_quickstart.main(): {' | '.join(lines)}; K1 launches {n}")
+
+        de = load_example("torch_detailed_example")
+        got, calls, n, lines = run_example(k1, lambda: de.main(seed=s))
+        if n != 2 or got.fens != want.fens or got.board_found.tolist() != want.board_found.tolist():
+            fail(f"launchers: detailed example fens={got.fens} K1 launches {n}; process_batch {want.fens}")
+        launches += n
+        errs.update(check_captured(k1, calls, "detailed"))
+        log(f"[launchers] torch_detailed_example.main(): {len(lines)} lines, {lines[-2] if len(lines) > 1 else ''}; "
+            f"K1 launches {n}")
+
+        st = load_example("torch_streaming_throughput")
+        got, calls, n, lines = run_example(k1, lambda: st.main(4, 32, seed=s))
+        want32 = cv.engine.process_batch(got["batch"])
+        for fens, found in zip(got["fens"], got["found"]):
+            if fens != want32.fens or found.tolist() != want32.board_found.tolist():
+                fail(f"launchers: streaming example FENs {fens[:2]}... differ from process_batch's {want32.fens[:2]}...")
+        if n != 2 * 5:  # the warm-up batch and 4 streamed
+            fail(f"launchers: streaming example K1 launches {n}, expected 10")
+        launches += n
+        errs.update(check_captured(k1, {"warp_twopass": calls["warp_twopass"][:2], "hat_resample": []}, "streaming"))
+        res["streaming_boards_per_s"] = got["boards_per_s"]
+        log(f"[launchers] torch_streaming_throughput.main(4, 32): {got['boards_per_s']:.1f} boards/s (yuv444 through "
+            f"run_stream, 32 tiles of one synthetic frame, host FENs included); {card}; FENs equal process_batch's; "
+            f"K1 launches {n}")
+
+        # repair: the raw stream on a one-process mesh runs mesh-free on the card
+        batches = [frames8, frames8[::-1].copy()]
+        meshed = ChessVision(device="cuda", mesh=create_mesh()).engine
+        plain_out = list(cv.engine.run_stream(batches, kind="raw"))
+        k1.launches = 0
+        mesh_out = list(meshed.run_stream(batches, kind="raw"))
+        torch.cuda.synchronize()
+        n = k1.launches
+        bad = [k for a, b in zip(mesh_out, plain_out) for k in b
+               if not (isinstance(a[k], torch.Tensor) and a[k].is_cuda and torch.equal(a[k], b[k]))]
+        if n != 4 or len(mesh_out) != 2 or bad:
+            fail(f"launchers: Engine(mesh=create_mesh()).run_stream(raw): K1 launches {n}, differing or host outputs {bad}")
+        launches += n
+        log(f"[launchers] Engine(mesh=create_mesh()) raw stream, 2 batches of 8: tensors on {mesh_out[0]['found'].device}, "
+            f"equal to the mesh-free stream's; K1 launches {n}")
+        del plain_out, mesh_out
+
+        stdout, stderr = evaluation.communicate(timeout=600)
+        if evaluation.returncode != 0:
+            fail(f"launchers: torch_evaluate.sh exited {evaluation.returncode}:\n{stderr[-3000:]}")
+        agg = json.loads(stdout[stdout.rfind("\n{") + 1 :])
+        timeless = lambda a: {k: v for k, v in a.items() if not k.startswith("avg_time")}  # noqa: E731
+        if timeless(agg) != timeless(agg12):
+            fail(f"launchers: torch_evaluate.sh aggregates {timeless(agg)} differ from phase 12's {timeless(agg12)}")
+        log(f"[launchers] torch_evaluate.sh --test-root <phase 12's> --batch-size 8: aggregates equal phase 12's "
+            f"({agg['num_images']} images) in {time.perf_counter() - t0:.1f} s since the wrappers started")
+
+        deadline = time.time() + 300
+        while True:
+            if server.poll() is not None:
+                fail(f"launchers: torch_serve.sh exited {server.returncode}")
+            try:
+                if http_json(port, "/ping", None)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.time() > deadline:
+                fail("launchers: torch_serve.sh did not answer /ping in 300 s")
+            time.sleep(0.5)
+        log(f"[launchers] torch_serve.sh --local up on port {port} (warmed) {time.perf_counter() - t0:.1f} s after "
+            f"the wrappers started")
+        want1 = cv.engine.process_batch(image[None], lite=True)
+        status, body = http_json(port, "/cv_algo/", {"image": base64.b64encode(ppm_bytes(image)).decode()})
+        if bool(want1.board_found[0]):
+            ok = status == 200 and body.get("fen") == want1.fens[0]
+        else:
+            ok = status == 400 and body.get("error") == "No chessboard detected"
+        if not ok:
+            fail(f"launchers: torch_serve.sh answered {status} {body}, process_batch gave {want1.fens[0]!r}")
+        log(f"[launchers] torch_serve.sh answered {status} fen={body.get('fen')!r} (process_batch's)")
+    finally:
+        if server.poll() is None:
+            os.killpg(server.pid, signal.SIGTERM)
+            try:
+                server.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(server.pid, signal.SIGKILL)
+                server.wait()
+        server_log.close()
+        if evaluation is not None and evaluation.poll() is None:
+            evaluation.kill()
+            evaluation.wait()
+    worst = max(e for case in errs.values() for e in case.values())
+    res.update(k1_max_abs_err=worst, seconds=time.perf_counter() - t0, launches=launches)
+    log(f"[launchers] done in {res['seconds']:.1f} s; K1 launches {launches}, max |kernel - plain| {worst}")
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1634,18 +1833,21 @@ def main() -> int:
     launches_augment, errs_augment, k1_augment = phase_augment(k1, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
         launches_train, train_results = phase_train(k1, args.seed, root, frames8, args.profile)
-        launches_eval = phase_eval(k1, args.seed, root)
+        launches_eval, agg12 = phase_eval(k1, args.seed, root)
         # -- 13–14. data parallelism, the data tools --------------------------------------------------
         launches_parallel, parallel = phase_parallel(k1, args.seed, root, res128, frames8)
         launches_data, data_res = phase_data(k1, args.seed, root, frames128)
-    worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"])
+        # -- 15. the launchers ---------------------------------------------------------------------
+        launches_launchers, launchers = phase_launchers(k1, args.seed, root, card, frames8, agg12)
+    worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
     worst = max(worst, *(e for case in errs_augment.values() for e in case.values()))
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
-        f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}")
+        f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
+        f"launchers {launches_launchers}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -1661,7 +1863,7 @@ def main() -> int:
         "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
-                     + launches_train + launches_eval + launches_parallel + launches_data),
+                     + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers),
         "max_abs_err": worst,
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],

@@ -3,7 +3,8 @@ the one-process reference alike (tests/test_torch_mesh.py).
 
 As a script it is one rank: ``python tests/_torch_mesh_worker.py RANK WORLD
 INIT_FILE IN_DIR OUT_DIR`` joins a gloo group through a file store, builds
-the CPU mesh and writes ``OUT_DIR/rank{RANK}.npz``; ``python
+the CPU mesh, runs the train steps, ``process_batch``, the raw stream and
+``run_device`` on a tensor, and writes ``OUT_DIR/rank{RANK}.npz``; ``python
 tests/_torch_mesh_worker.py trainers RANK WORLD PORT`` runs both trainers'
 command lines as that rank (``trainer_argv``) on the tiny datasets of
 tests/_trainer_parity.py.  It imports torch and the port only.
@@ -127,6 +128,21 @@ def engine_record(mesh: mesh_lib.Mesh | None, yolo_state_dict: dict) -> dict[str
     }
 
 
+def stream_record(mesh: mesh_lib.Mesh | None, yolo_state_dict: dict) -> dict[str, np.ndarray]:
+    """The whole batch through ``run_stream(kind="raw")``, which never
+    splits it over the ranks; ``stream/tensors`` is 1 when every output
+    came back as a tensor.  On a mesh, also ``run_device`` given the batch
+    as a tensor (padded in torch, gathered to the host)."""
+    engine = build_engine(mesh, yolo_state_dict)
+    (out,) = list(engine.run_stream([engine_batch()], threshold=0.5, kind="raw"))
+    rec = {"stream/tensors": np.int64(all(isinstance(v, torch.Tensor) for v in out.values()))}
+    rec.update({f"stream/{k}": v.numpy() for k, v in out.items() if isinstance(v, torch.Tensor)})
+    if mesh is not None:
+        dev = engine.run_device(torch.from_numpy(engine_batch()), threshold=0.5)
+        rec.update({f"tensor_input/{k}": np.asarray(v) for k, v in dev.items()})
+    return rec
+
+
 def patch_datasets() -> None:
     """Point the port's loaders at tests/_trainer_parity.py's datasets."""
     from chessvision_tpu_torch.train import data as data_lib
@@ -167,6 +183,7 @@ def main(argv: list[str]) -> int:
     rec.update(seg_step(mesh, torch.load(in_dir / "unet.pt")))
     rec.update(cls_step(mesh, torch.load(in_dir / "resnet.pt")))
     rec.update(engine_record(mesh, torch.load(in_dir / "yolo.pt")))
+    rec.update(stream_record(mesh, torch.load(in_dir / "yolo.pt")))
     np.savez(out_dir / f"rank{rank}.npz", **rec)
     torch.distributed.destroy_process_group()
     return 0

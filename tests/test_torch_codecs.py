@@ -314,7 +314,7 @@ def test_run_stream_order_of_steps_and_unknown_kind(stream_case) -> None:
         log.append(f"dispatch {int(images[0, 0, 0, 0])} thr={threshold}")
         return {"i": int(images[0, 0, 0, 0])}
 
-    eng.run_device = fake_run
+    eng._run_device = fake_run  # the raw kind runs the mesh-free path
     for out in eng.run_stream(batches(), threshold=0.25):
         log.append(f"yield {out['i']}")
     assert log == [

@@ -295,3 +295,32 @@ def test_native_packers_bit_identical_on_the_cards_machine() -> None:
         assert np.array_equal(got, want)
     for got, want in zip(native_loader.pack_yuv420(comp, gray), engine._pack_yuv420_numpy(comp, gray)):
         assert np.array_equal(got, want)
+
+
+def test_raw_stream_on_a_one_process_mesh_yields_the_mesh_free_tensors_on_the_card() -> None:
+    """``Engine(mesh=create_mesh())`` at world size 1 (no process group):
+    the raw stream runs each batch mesh-free and yields tensors on the
+    card equal to those of the engine without a mesh; ``run_device`` on
+    the mesh takes a tensor on the card and returns tensors there."""
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.parallel.mesh import create_mesh
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    frames = board_frames(0, 4)[0]
+    batches = [frames[:2], frames[2:]]
+    meshed = ChessVision(mesh=create_mesh()).engine
+    plain = ChessVision(device="cuda").engine
+    got = list(meshed.run_stream(batches, kind="raw"))
+    want = list(plain.run_stream(batches, kind="raw"))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert isinstance(g[k], torch.Tensor) and g[k].is_cuda, k
+            assert torch.equal(g[k], w[k]), k
+    dev = meshed.run_device(torch.from_numpy(frames).cuda())
+    ref = plain.run_device(frames)
+    for k in ref:
+        assert isinstance(dev[k], torch.Tensor) and dev[k].is_cuda, k
+        assert torch.equal(dev[k], ref[k]), k

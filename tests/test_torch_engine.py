@@ -351,16 +351,21 @@ def test_entry_points_raise_without_gpu() -> None:
 
 
 def test_package_never_imports_jax() -> None:
-    """Every module of the port imports without JAX or the JAX package, and
-    the port's native loader and packers never map a file of the JAX
-    package's ``lib/`` (checked in the process's memory maps)."""
+    """Every module of the port and the port's three examples import
+    without JAX or the JAX package, and the port's native loader and
+    packers never map a file of the JAX package's ``lib/`` (checked in the
+    process's memory maps)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import numpy as np\n"
         "import chessvision_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'chessvision_tpu_torch.'):\n"
         "    if not m.name.endswith('.__main__'):\n"
         "        importlib.import_module(m.name)\n"
+        "for name in ('torch_quickstart', 'torch_detailed_example', 'torch_streaming_throughput'):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    print('example', name)\n"
         "from chessvision_tpu_torch import engine, native_loader\n"
         "native_loader.available()\n"
         "engine.pack_inputs_yuv444(np.zeros((1, 512, 512, 3), np.uint8))\n"
@@ -373,7 +378,10 @@ def test_package_never_imports_jax() -> None:
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 50
+    assert int(out.stdout.split("\n")[3].split()[0]) >= 50
+    assert out.stdout.splitlines()[:3] == [
+        "example torch_quickstart", "example torch_detailed_example", "example torch_streaming_throughput"
+    ]
     for name in (
         "serve.server", "serve.webroot_server", "models.yolo", "profiling", "parallel.mesh", "ingest.pipeline",
         "ingest.merge", "tools.error_analysis", "tools.mine_warped_squares", "native_loader", "curation",

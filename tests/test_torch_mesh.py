@@ -8,7 +8,9 @@ tests/test_steps_sharded.py.
 - two gloo processes (tests/_torch_mesh_worker.py, a file store) run one
   segmentation step (UNet base 4, 32², B=8 global), one classifier step
   (ResNet18 width 8, 64², B=16 global) and ``Engine(mesh=…).process_batch``
-  (stub extractor and YoloCls width 8, 3 frames padded to 4).  The models
+  (stub extractor and YoloCls width 8, 3 frames padded to 4), then the
+  raw ``run_stream`` of the whole batch on each rank and ``run_device``
+  given the batch as a tensor.  The models
   are the port's, seeded; the JAX package gets their variables through
   ``weights.torch_to_flax``.
 
@@ -33,7 +35,9 @@ ROADMAP §3 on JAX's train-mode statistics).
 
 The engine's FENs and found flags equal the one-process engine's and the
 JAX package's; its probabilities are within 1e-5 of the one-process
-engine and 1e-3 of JAX (the atol of tests/test_torch_engine.py).
+engine and 1e-3 of JAX (the atol of tests/test_torch_engine.py).  The raw
+stream on a mesh runs each rank's whole batch as a mesh-free engine does,
+so it yields tensors equal bit for bit to the one-process stream's.
 """
 
 from __future__ import annotations
@@ -183,6 +187,7 @@ def two_ranks(tmp_path_factory):
     one.update(worker.seg_step(None, sds["unet.pt"]))
     one.update(worker.cls_step(None, sds["resnet.pt"]))
     one.update(worker.engine_record(None, sds["yolo.pt"]))
+    one.update(worker.stream_record(None, sds["yolo.pt"]))
     logs = []
     for p in procs:
         try:
@@ -284,3 +289,22 @@ def test_mesh_engine_equals_one_process_and_jax(two_ranks) -> None:
     assert got["engine/fens"].tolist() == list(want.fens)
     assert got["engine/found"].tolist() == [bool(f) for f in want.board_found]
     np.testing.assert_allclose(got["engine/probabilities"], np.asarray(want.probabilities), atol=1e-3)
+
+
+def test_mesh_raw_stream_runs_the_whole_batch_on_every_rank(two_ranks) -> None:
+    """``run_stream(kind="raw")`` on a two-process mesh yields, on each
+    rank, the tensors of a mesh-free engine's stream over the same batch;
+    ``run_device`` given the batch as a tensor pads it in torch and hands
+    every rank the whole gathered result, as ``process_batch`` does."""
+    ranks, one, _ = two_ranks
+    assert int(one["stream/tensors"]) == 1
+    for got in ranks:
+        assert int(got["stream/tensors"]) == 1
+        keys = [k for k in one if k.startswith("stream/") and k != "stream/tensors"]
+        assert len(keys) == 5
+        for k in keys:
+            assert np.array_equal(got[k], one[k]), k
+        assert got["tensor_input/probabilities"].shape == (3, 64, 13)
+        np.testing.assert_array_equal(got["tensor_input/found"], got["engine/found"])
+        np.testing.assert_array_equal(got["tensor_input/probabilities"], got["engine/probabilities"])
+        np.testing.assert_array_equal(got["tensor_input/quadrangle"], got["engine/quadrangle"])
