@@ -526,17 +526,21 @@ class _StreamUploader:
         if self._events[turn] is not None:
             self._events[turn].synchronize()
         staged = []
-        for i, t in enumerate(tensors):
-            buf = self._slots[turn].get(i)
-            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                self._slots[turn][i] = buf
-            buf.copy_(t)
-            staged.append(buf)
-        with torch.cuda.stream(self._copy_stream):
-            on_device = [t.to(self.device, non_blocking=True) for t in staged]
-            event = torch.cuda.Event()
-            event.record(self._copy_stream)
+        # on this engine's card throughout: the pinned buffers go through its
+        # context, and ``torch.cuda.stream`` entered from another current
+        # card switches back to that card on exit, which opens a context there
+        with torch.cuda.device(self.device):
+            for i, t in enumerate(tensors):
+                buf = self._slots[turn].get(i)
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    self._slots[turn][i] = buf
+                buf.copy_(t)
+                staged.append(buf)
+            with torch.cuda.stream(self._copy_stream):
+                on_device = [t.to(self.device, non_blocking=True) for t in staged]
+                event = torch.cuda.Event()
+                event.record(self._copy_stream)
         self._events[turn] = event
         return on_device, event
 

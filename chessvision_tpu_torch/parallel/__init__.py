@@ -12,6 +12,7 @@ from chessvision_tpu_torch.parallel.mesh import (
     process_local_batch_slice,
     replicate,
     shard_batch,
+    shutdown_distributed,
     spans_processes,
 )
 
@@ -26,5 +27,6 @@ __all__ = [
     "process_local_batch_slice",
     "replicate",
     "shard_batch",
+    "shutdown_distributed",
     "spans_processes",
 ]

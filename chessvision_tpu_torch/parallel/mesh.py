@@ -12,7 +12,14 @@ inference (``engine.Engine(mesh=…)``).
 
 Backends: NCCL for CUDA devices, gloo for the CPU.  NCCL refuses two
 ranks on one device, so ranks that share a card run gloo; gloo's
-collectives then go through host memory (``Mesh.comm_device``).
+collectives then go through host memory (``Mesh.comm_device``).  A mesh
+over NCCL whose ranks share a card raises (``create_mesh``).
+
+Each process computes on ``cuda:LOCAL_RANK`` and makes it the current
+device before it joins the group (``initialize_distributed``,
+``create_mesh``): calls that take no device (a synchronize, pinned host
+buffers, NCCL's barrier) then act on the process's own card, not card 0.
+``shutdown_distributed`` leaves the group.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import socket
 from dataclasses import dataclass
 from typing import Any
 
@@ -96,6 +104,13 @@ def default_backend(device: str | torch.device | None = None) -> str:
     return "nccl" if torch.cuda.is_available() else "gloo"
 
 
+def _bind(dev: torch.device) -> torch.device:
+    """Make a CUDA ``dev`` the current device; returns ``dev``."""
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def initialize_distributed(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
@@ -114,27 +129,41 @@ def initialize_distributed(
     ``CVTPU_DISTRIBUTED=1``.  Plain single-process runs are a no-op.
     Failures with explicit arguments propagate (a misconfigured job must
     fail, not train N times alone); the autodetect path is best effort and
-    falls through to one process.  Idempotent."""
+    falls through to one process.  Idempotent.
+
+    Under NCCL the process's card (``local_device``) becomes the current
+    device before the group is joined, and is the group's ``device_id``."""
     backend = backend or default_backend()
     timeout = datetime.timedelta(seconds=timeout_s)
     if dist.is_initialized():
         return process_index()
-    if coordinator_address is not None:
-        if num_processes is None or process_id is None:
-            raise ValueError("--coordinator needs --num-processes and --process-id")
-        dist.init_process_group(
-            backend,
-            init_method=f"tcp://{coordinator_address}",
-            world_size=int(num_processes),
-            rank=int(process_id),
-            timeout=timeout,
-        )
-    elif _env_cluster():
-        try:
-            dist.init_process_group(backend, init_method="env://", timeout=timeout)
-        except (ValueError, RuntimeError, KeyError) as e:
-            logger.info("no process group from the environment (%s): one process", e)
+    explicit = coordinator_address is not None
+    if not explicit and not _env_cluster():
+        return process_index()
+    if explicit and (num_processes is None or process_id is None):
+        raise ValueError("--coordinator needs --num-processes and --process-id")
+    kwargs: dict[str, Any] = {"timeout": timeout}
+    if explicit:
+        kwargs.update(init_method=f"tcp://{coordinator_address}", world_size=int(num_processes), rank=int(process_id))
+    else:
+        kwargs["init_method"] = "env://"
+    if backend == "nccl":
+        rank = int(process_id) if explicit else int(os.environ.get("RANK", 0))
+        kwargs["device_id"] = _bind(local_device("cuda", rank))
+    try:
+        dist.init_process_group(backend, **kwargs)
+    except (ValueError, RuntimeError, KeyError) as e:
+        if explicit:
+            raise
+        logger.info("no process group from the environment (%s): one process", e)
     return process_index()
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (``jax.distributed.shutdown``'s
+    counterpart); a no-op without one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:
@@ -145,24 +174,67 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def local_device(device: str | torch.device = "cuda") -> torch.device:
-    """This process's device: ``cuda:LOCAL_RANK`` (modulo the cards, so
-    ranks may share one) for a CUDA request, the CPU when asked."""
+def local_device(device: str | torch.device = "cuda", rank: int | None = None) -> torch.device:
+    """This process's device: ``cuda:LOCAL_RANK`` (else the rank, by
+    default the group's; modulo the cards, so ranks may share one) for a
+    CUDA request, the CPU when asked."""
     dev = torch.device(device)
     if dev.type != "cuda" or dev.index is not None:
         return dev
-    local = int(os.environ.get("LOCAL_RANK", process_index()))
+    local = int(os.environ.get("LOCAL_RANK", process_index() if rank is None else rank))
     return torch.device("cuda", local % max(1, torch.cuda.device_count()))
+
+
+def _device_key(dev: torch.device) -> str:
+    """A name of a card that two processes on one host agree on, whatever
+    their ``CUDA_VISIBLE_DEVICES``: its UUID where torch reports it."""
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    return f"{socket.gethostname()}/{uuid if uuid is not None else dev.index}"
+
+
+def check_one_rank_per_device(mesh: Mesh, key: str) -> None:
+    """Raise, naming both ranks, when two ranks of the group report the
+    same device ``key``.  Exchanged through the group's store, so it runs
+    before the first NCCL collective, which such ranks would fail or
+    hang in."""
+    store = dist.distributed_c10d._get_default_store()
+    store.set(f"cvtpu_mesh_device/{mesh.rank}", key)
+    seen: dict[str, int] = {}
+    for r in range(mesh.size):
+        other = store.get(f"cvtpu_mesh_device/{r}").decode()
+        if other in seen:
+            raise RuntimeError(
+                f"ranks {seen[other]} and {r} share the device {other}: NCCL needs one device a rank "
+                "(start at most one process per card, or use gloo)"
+            )
+        seen[other] = r
 
 
 def create_mesh(n_devices: int | None = None, device: str | torch.device = "cuda") -> Mesh:
     """The mesh over every process of the group (one process, no group:
     a mesh of one).  ``n_devices``, when given, must equal that count:
-    one process drives one device."""
+    one process drives one device.  A CUDA device becomes the current
+    device; under NCCL no two ranks may share one (raises)."""
     size = process_count()
     if n_devices is not None and n_devices != size:
         raise ValueError(f"one process per device: the group has {size} processes, asked for {n_devices}")
-    return Mesh(size, process_index(), local_device(device))
+    mesh = Mesh(size, process_index(), _bind(local_device(device)))
+    if mesh.backend == "nccl":
+        check_one_rank_per_device(mesh, _device_key(mesh.device))
+    return mesh
+
+
+def log_unused_cards(dev: torch.device, module: str) -> None:
+    """One log line when this process, outside a process group, computes
+    on one of several visible cards: how to use them all."""
+    n = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n > 1 and not dist.is_initialized():
+        logger.info(
+            "%d CUDA devices are visible and this process trains on %s only; to train on all of them run "
+            "one process per card: NPROC=%d scripts/bin/torch_train_distributed.sh ... "
+            "or torchrun --nproc-per-node %d -m %s ...",
+            n, dev, n, n, module,
+        )
 
 
 def process_local_batch_slice(global_batch: int, mesh: Mesh | None = None) -> tuple[int, int]:

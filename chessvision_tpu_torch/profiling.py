@@ -29,13 +29,17 @@ from chessvision_tpu_torch.ops.quad import find_quadrangle_batch
 from chessvision_tpu_torch.ops.resize import resize
 from chessvision_tpu_torch.ops.squares import extract_squares_batch
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
+from chessvision_tpu_torch.parallel import mesh as mesh_lib
 from chessvision_tpu_torch.synthetic import board_frames
 from chessvision_tpu_torch.utils import full_f32
 
 
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+def _sync(device: torch.device | None = None) -> None:
+    """Wait for ``device``'s work; by default this process's card
+    (``cuda:LOCAL_RANK``), never whichever card happens to be current."""
+    dev = mesh_lib.local_device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        torch.cuda.synchronize(dev)
 
 
 def _profiler() -> Any:
@@ -61,24 +65,29 @@ def trace(log_dir: str | Path | None = None) -> Iterator[Any]:
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-def wall_ms(fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 0) -> list[float]:
+def wall_ms(
+    fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 0, device: torch.device | None = None
+) -> list[float]:
     """Wall times (ms) of ``iters`` calls of ``fn(*args)``, each ending in a
-    device synchronize, after ``warmup`` untimed calls."""
+    synchronize of ``device`` (``_sync``'s default: this process's card),
+    after ``warmup`` untimed calls."""
     for _ in range(warmup):
         fn(*args)
-    _sync()
+    _sync(device)
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
         fn(*args)
-        _sync()
+        _sync(device)
         times.append((time.perf_counter() - t0) * 1e3)
     return times
 
 
-def time_fn(fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 2) -> dict[str, float]:
+def time_fn(
+    fn: Callable[..., Any], *args: Any, iters: int = 10, warmup: int = 2, device: torch.device | None = None
+) -> dict[str, float]:
     """Median and best wall time of a device function, synchronized."""
-    times = wall_ms(fn, *args, iters=iters, warmup=warmup)
+    times = wall_ms(fn, *args, iters=iters, warmup=warmup, device=device)
     return {"p50_ms": float(np.median(times)), "best_ms": float(np.min(times))}
 
 
@@ -115,11 +124,11 @@ def profile_engine_stages(cv_model: Any, batch_size: int = 32, iters: int = 5) -
         quads, _ = quad_fn(probs)
         boards = warp_fn(images, quads)
         return {
-            "resize": time_fn(resize_fn, images, iters=iters),
-            "unet": time_fn(ex_mod, x, iters=iters),
-            "quadrangle": time_fn(quad_fn, probs, iters=iters),
-            "warp": time_fn(warp_fn, images, quads, iters=iters),
-            "classify": time_fn(cls_fn, boards, iters=iters),
+            "resize": time_fn(resize_fn, images, iters=iters, device=dev),
+            "unet": time_fn(ex_mod, x, iters=iters, device=dev),
+            "quadrangle": time_fn(quad_fn, probs, iters=iters, device=dev),
+            "warp": time_fn(warp_fn, images, quads, iters=iters, device=dev),
+            "classify": time_fn(cls_fn, boards, iters=iters, device=dev),
         }
 
 
@@ -134,10 +143,10 @@ def stage_breakdown(engine: Any, frames: np.ndarray, iters: int) -> tuple[dict[s
 
     def timed(name: str, fn: Callable[..., Any]) -> Callable[..., Any]:
         def run(*a: Any, **k: Any) -> Any:
-            _sync()
+            _sync(engine.device)
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            _sync()
+            _sync(engine.device)
             acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
             return out
 
@@ -160,7 +169,7 @@ def stage_breakdown(engine: Any, frames: np.ndarray, iters: int) -> tuple[dict[s
     try:
         for (owner, attr, fn), (_, _, label) in zip(saved, targets):
             setattr(owner, attr, timed(label or attr, fn))
-        totals = wall_ms(engine.process_batch, frames, iters=iters)
+        totals = wall_ms(engine.process_batch, frames, iters=iters, device=engine.device)
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)

@@ -18,6 +18,14 @@ The streams are independent of one another, so turning on
 ``illum_gradient``, ``cutout``, ``dim`` or ``fade`` leaves every other
 augmentation's draws unchanged at a key, the JAX package's rule.
 ``fold_in(key, i)`` derives the key of step i.
+
+Rows of a batch: on a mesh each rank augments only its rows of the global
+batch (``rows=(start, stop)``, ``global_batch=B``).  Every draw, and every
+per-sample quantity derived from one (matrices, blur kernels, jitter
+factors), is still made at the global batch's shape and then sliced, and
+each per-image mean is reduced at the global batch's shape
+(``_row_mean``); so a rank's rows equal the whole batch's augmentation
+sliced to them, bit for bit, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -49,6 +57,54 @@ def _generator(key: int, name: str, device: torch.device) -> torch.Generator:
 def _uniform(key: int, name: str, shape: tuple[int, ...], lo: float, hi: float, device: torch.device) -> torch.Tensor:
     u = torch.rand(shape, generator=_generator(key, name, device), device=device)
     return lo + (hi - lo) * u
+
+
+def _row_range(n: int, rows: tuple[int, int] | None, global_batch: int | None) -> tuple[int, int, int]:
+    """(start, stop, B) of ``n`` given rows in a global batch of B."""
+    if rows is None:
+        if global_batch not in (None, n):
+            raise ValueError(f"global_batch={global_batch} needs rows= for a batch of {n}")
+        return 0, n, n
+    start, stop = int(rows[0]), int(rows[1])
+    if global_batch is None:
+        raise ValueError("rows= needs global_batch=")
+    if not (0 <= start <= stop <= global_batch and stop - start == n):
+        raise ValueError(f"rows {rows} of a global batch of {global_batch} do not hold the {n} rows given")
+    return start, stop, int(global_batch)
+
+
+def _dense_rows(x: torch.Tensor) -> bool:
+    """Whether (n, ...) ``x`` is laid out row after row, each row dense."""
+    dims = sorted((st, sz) for st, sz in zip(x.stride()[1:], x.shape[1:]) if sz > 1)
+    step = 1
+    for st, sz in dims:
+        if st != step:
+            return False
+        step *= sz
+    return x.shape[0] == 1 or x.stride(0) == step
+
+
+def _row_mean(x: torch.Tensor, span: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Per-sample mean of (n, ...) float32 → (n, 1, ..., 1).  ``span`` =
+    (start, stop, B) places the rows in a global batch of B: a float
+    reduction's order depends on the shape and layout it runs at (CUDA's
+    launch shape, the CPU's threads), so the rows are reduced inside a
+    tensor of the global batch's shape and of their layout (the other rows
+    zero), which gives them the bits the whole batch's mean gives them,
+    and one process keeps its bits.  Costs a tensor of the global batch's
+    size for each mean on every rank.  Rows not laid out row after row are
+    reduced from a contiguous copy, in one process as in a rank."""
+    if not _dense_rows(x):
+        x = x.contiguous()
+    dims = tuple(range(1, x.ndim))
+    if span is None or span[1] - span[0] == span[2]:
+        return x.mean(dim=dims, keepdim=True)
+    start, stop, b = span
+    full = torch.empty_strided((b, *x.shape[1:]), (x[0].numel(), *x.stride()[1:]), dtype=x.dtype, device=x.device)
+    full[:start] = 0.0
+    full[stop:] = 0.0
+    full[start:stop] = x
+    return full.mean(dim=dims, keepdim=True)[start:stop]
 
 
 def _rotation_matrices(angles_deg: torch.Tensor, h: float, w: float) -> torch.Tensor:
@@ -94,6 +150,19 @@ def _warp_nhwc(images: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
     return _warp_batched_twopass(images.contiguous(), ms.contiguous(), h, w)
 
 
+def _jitter_factors(
+    apply: torch.Tensor, bright: torch.Tensor, contrast: torch.Tensor, sat: torch.Tensor, hue: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """The per-sample factors of ``_color_jitter``: brightness, contrast,
+    saturation (B, 1, 1, 1), and the hue rotation's cos and sin (B, 1, 1)."""
+
+    def per(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+        return torch.where(apply, v, torch.full_like(v, (lo + hi) / 2.0))[:, None, None, None]
+
+    hshift = (per(hue, -0.1, 0.1) * 2 * math.pi)[..., 0]
+    return per(bright, 0.9, 1.1), per(contrast, 0.9, 1.1), per(sat, 0.9, 1.1), torch.cos(hshift), torch.sin(hshift)
+
+
 def _color_jitter(
     img: torch.Tensor,
     apply: torch.Tensor,
@@ -105,17 +174,20 @@ def _color_jitter(
     """Brightness/contrast/saturation/hue per sample on (B, H, W, 3) BGR in
     [0, 1].  ``bright``, ``contrast``, ``sat`` ~ U(0.9, 1.1) and ``hue`` ~
     U(−0.1, 0.1), each (B,); samples not in ``apply`` get the centers."""
+    return _jitter_with(img, *_jitter_factors(apply, bright, contrast, sat, hue))
 
-    def per(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-        return torch.where(apply, v, torch.full_like(v, (lo + hi) / 2.0))[:, None, None, None]
 
-    b_ = per(bright, 0.9, 1.1)
-    c_ = per(contrast, 0.9, 1.1)
-    s_ = per(sat, 0.9, 1.1)
-    hshift = (per(hue, -0.1, 0.1) * 2 * math.pi)[..., 0]
-
+def _jitter_with(
+    img: torch.Tensor,
+    b_: torch.Tensor,
+    c_: torch.Tensor,
+    s_: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    span: tuple[int, int, int] | None = None,
+) -> torch.Tensor:
     img = img * b_
-    mean = img.mean(dim=(1, 2, 3), keepdim=True)
+    mean = _row_mean(img, span)
     img = (img - mean) * c_ + mean
     gray = img[..., 2:3] * 0.299 + img[..., 1:2] * 0.587 + img[..., 0:1] * 0.114
     img = (img - gray) * s_ + gray
@@ -123,7 +195,6 @@ def _color_jitter(
     y = 0.299 * r + 0.587 * g + 0.114 * bch
     i = 0.596 * r - 0.274 * g - 0.322 * bch
     q = 0.211 * r - 0.523 * g + 0.312 * bch
-    cos, sin = torch.cos(hshift), torch.sin(hshift)
     i2 = i * cos - q * sin
     q2 = i * sin + q * cos
     r2 = y + 0.956 * i2 + 0.621 * q2
@@ -135,11 +206,19 @@ def _color_jitter(
 def _gaussian_blur3(img: torch.Tensor, apply: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """3×3 Gaussian blur of (B, H, W, C) with per-sample ``sigma`` (B,),
     edge padding; the identity kernel where not applied."""
-    xs = torch.arange(-1, 2, dtype=torch.float32, device=img.device)
+    return _blur_with(img, _blur_kernels(apply, sigma))
+
+
+def _blur_kernels(apply: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """(B, 3) separable Gaussian taps; the identity where not applied."""
+    xs = torch.arange(-1, 2, dtype=torch.float32, device=sigma.device)
     k = torch.exp(-0.5 * (xs[None, :] / sigma[:, None]) ** 2)
     k = k / k.sum(dim=1, keepdim=True)
     ident = (xs == 0).float()
-    k = torch.where(apply[:, None], k, ident)  # (B, 3)
+    return torch.where(apply[:, None], k, ident)
+
+
+def _blur_with(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     k0, k1, k2 = (k[:, i][:, None, None, None] for i in range(3))
     pad_h = torch.cat([img[:, :1], img, img[:, -1:]], dim=1)
     img = k0 * pad_h[:, :-2] + k1 * pad_h[:, 1:-1] + k2 * pad_h[:, 2:]
@@ -161,38 +240,52 @@ def _illum_gradient(img: torch.Tensor, apply: torch.Tensor, strength: torch.Tens
 
 
 def augment_segmentation_batch(
-    key: int, images: torch.Tensor, masks: torch.Tensor, illum_gradient: bool = False
+    key: int,
+    images: torch.Tensor,
+    masks: torch.Tensor,
+    illum_gradient: bool = False,
+    *,
+    rows: tuple[int, int] | None = None,
+    global_batch: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W, 3) float32 in [0, 1] and (B, H, W) float32 masks → the
-    augmented pair (two warp calls: images, masks)."""
-    b, h, w = images.shape[0], images.shape[1], images.shape[2]
+    augmented pair (two warp calls: images, masks).  With ``rows=(start,
+    stop)`` and ``global_batch``, ``images`` and ``masks`` are those rows of
+    the global batch, and the result equals the whole batch's
+    augmentation sliced to them."""
+    h, w = images.shape[1], images.shape[2]
+    start, stop, b = _row_range(images.shape[0], rows, global_batch)
     dev = images.device
 
     def u(name: str, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
         return _uniform(key, name, (b,), lo, hi, dev)
 
+    def mine(*per_sample: torch.Tensor) -> list[torch.Tensor]:
+        return [t[start:stop] for t in per_sample]
+
     if illum_gradient:
         direction = torch.randint(0, 4, (b,), generator=_generator(key, "illum_direction", dev), device=dev)
-        images = _illum_gradient(images, u("illum_apply") < 0.3, u("illum_strength", 0.25, 0.65), direction)
+        images = _illum_gradient(images, *mine(u("illum_apply") < 0.3, u("illum_strength", 0.25, 0.65), direction))
 
-    do_flip = u("flip") > 0.5
+    (do_flip,) = mine(u("flip") > 0.5)
     images = torch.where(do_flip[:, None, None, None], images.flip(2), images)
     masks = torch.where(do_flip[:, None, None], masks.flip(2), masks)
 
     do_rot = u("rotate") > 0.5
     angles = torch.randint(-15, 15, (b,), generator=_generator(key, "angle", dev), device=dev).float()
     angles = torch.where(do_rot, angles, torch.zeros_like(angles))
-    ms = _rotation_matrices(angles, h, w)
+    (ms,) = mine(_rotation_matrices(angles, h, w))
     images = _warp_nhwc(images, ms)
     masks = _warp_nhwc(masks, ms)
 
     do_jit = u("jitter") > 0.5
-    images = _color_jitter(
-        images, do_jit, u("bright", 0.9, 1.1), u("contrast", 0.9, 1.1), u("saturation", 0.9, 1.1), u("hue", -0.1, 0.1)
-    )
+    factors = _jitter_factors(do_jit, u("bright", 0.9, 1.1), u("contrast", 0.9, 1.1), u("saturation", 0.9, 1.1),
+                              u("hue", -0.1, 0.1))
+    images = _jitter_with(images, *mine(*factors), span=(start, stop, b))
 
     do_blur = u("blur") > 0.5
-    images = _gaussian_blur3(images, do_blur, u("sigma", 0.1, 2.0))
+    (kernels,) = mine(_blur_kernels(do_blur, u("sigma", 0.1, 2.0)))
+    images = _blur_with(images, kernels)
     return images, masks
 
 
@@ -203,6 +296,9 @@ def augment_classification_batch(
     cutout: bool = False,
     dim: bool = False,
     fade: bool = False,
+    *,
+    rows: tuple[int, int] | None = None,
+    global_batch: int | None = None,
 ) -> torch.Tensor:
     """(B, 64, 64, 1) float32 in [0, 1]: translate ±10%, scale 0.95–1.05
     and rotate ±15° as one composed warp (one call), then photometric
@@ -212,42 +308,51 @@ def augment_classification_batch(
     or shadow).  ``fade``: contrast fade toward a paper white, x → L −
     c·(L − x) with c ~ U(0.3, 0.75), L ~ U(0.55, 0.95), at p=0.25 (the
     book-gutter defocus).  ``cutout``: at p=0.5 a rectangle of 10–25% of
-    each side filled with the image mean (occluding fingers)."""
-    b, h, w = images.shape[0], images.shape[1], images.shape[2]
+    each side filled with the image mean (occluding fingers).
+
+    ``rows`` and ``global_batch`` as in ``augment_segmentation_batch``."""
+    h, w = images.shape[1], images.shape[2]
+    start, stop, b = _row_range(images.shape[0], rows, global_batch)
     dev = images.device
 
     def u(name: str, shape: tuple[int, ...], lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
-        return _uniform(key, name, shape, lo, hi, dev)
+        """The draw at the global batch's shape, sliced to the rows."""
+        return _uniform(key, name, (b, *shape), lo, hi, dev)[start:stop]
 
+    n = stop - start
     if dim:
-        factor = torch.where(u("dim_apply", (b,)) < 0.25, u("dim_factor", (b,), 0.3, 0.75), torch.ones(b, device=dev))
+        factor = torch.where(u("dim_apply", ()) < 0.25, u("dim_factor", (), 0.3, 0.75), torch.ones(n, device=dev))
         images = images * factor[:, None, None, None]
     if fade:
-        c = torch.where(u("fade_apply", (b,)) < 0.25, u("fade_contrast", (b,), 0.3, 0.75), torch.ones(b, device=dev))
-        paper = u("fade_paper", (b,), 0.55, 0.95)[:, None, None, None]
+        c = torch.where(u("fade_apply", ()) < 0.25, u("fade_contrast", (), 0.3, 0.75), torch.ones(n, device=dev))
+        paper = u("fade_paper", (), 0.55, 0.95)[:, None, None, None]
         # identity when c = 1 whatever the anchor; stays in [0, 1]
         images = paper - c[:, None, None, None] * (paper - images)
-    txy = u("translate", (b, 2), -0.1, 0.1) * w
-    m_aff = _affine_matrices(txy[:, 0], txy[:, 1], u("scale", (b,), 0.95, 1.05), h, w)
-    m_rot = _rotation_matrices(u("angle", (b,), -15.0, 15.0), h, w)
-    images = _warp_nhwc(images, torch.bmm(m_rot, m_aff))
+    # the matrices at the global batch (cos, sin and the product), then sliced
+    txy = _uniform(key, "translate", (b, 2), -0.1, 0.1, dev) * w
+    m_aff = _affine_matrices(txy[:, 0], txy[:, 1], _uniform(key, "scale", (b,), 0.95, 1.05, dev), h, w)
+    m_rot = _rotation_matrices(_uniform(key, "angle", (b,), -15.0, 15.0, dev), h, w)
+    images = _warp_nhwc(images, torch.bmm(m_rot, m_aff)[start:stop])
 
     if photometric:
-        images = images * u("bright", (b, 1, 1, 1), 0.75, 1.25)
-        mean = images.mean(dim=(1, 2, 3), keepdim=True)
-        images = (images - mean) * u("contrast", (b, 1, 1, 1), 0.75, 1.25) + mean
-        images = _gaussian_blur3(images, u("blur", (b,)) > 0.5, u("sigma", (b,), 0.1, 2.0))
+        images = images * u("bright", (1, 1, 1), 0.75, 1.25)
+        mean = _row_mean(images, (start, stop, b))
+        images = (images - mean) * u("contrast", (1, 1, 1), 0.75, 1.25) + mean
+        kernels = _blur_kernels(_uniform(key, "blur", (b,), 0.0, 1.0, dev) > 0.5, _uniform(key, "sigma", (b,), 0.1, 2.0, dev))
+        images = _blur_with(images, kernels[start:stop])
         images = torch.clamp(images, 0.0, 1.0)
 
     if cutout:
-        do_cut = u("cut_apply", (b,)) > 0.5
-        cy_cx = u("cut_center", (b, 2), 0.1, 0.9)
-        half = u("cut_half", (b, 2), 0.05, 0.125)
+        do_cut = u("cut_apply", ()) > 0.5
+        cy_cx = u("cut_center", (2,), 0.1, 0.9)
+        half = u("cut_half", (2,), 0.05, 0.125)
         ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] / h
         xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :] / w
         in_y = torch.abs(ys - cy_cx[:, 0][:, None, None]) < half[:, 0][:, None, None]
         in_x = torch.abs(xs - cy_cx[:, 1][:, None, None]) < half[:, 1][:, None, None]
         hole = (in_y & in_x & do_cut[:, None, None])[..., None]
-        fill = images.mean(dim=(1, 2, 3), keepdim=True)
+        # in logical order: after the blur's ``torch.cat`` a batch's layout
+        # looks channels-last from two rows up but not for one row
+        fill = _row_mean(images.contiguous(), (start, stop, b))
         images = torch.where(hole, fill, images)
     return images

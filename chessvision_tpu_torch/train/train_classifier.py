@@ -120,6 +120,8 @@ def train_model(
         mesh = mesh_lib.create_mesh(device=dev)
         dev = mesh.device
         batch_size -= batch_size % mesh.size
+    else:
+        mesh_lib.log_unused_cards(dev, __name__)
 
     if resume:
         tc = (load_metadata(resume) or {}).get("training_config", {})
@@ -254,15 +256,14 @@ def train_model(
         final_epoch = epoch
         epoch_loss, correct_sum, seen = 0.0, 0.0, 0
         for idx in data_lib.batches(n_train, batch_size, rng=rng_np, weights=weights, drop_last=True):
-            imgs = data.train_images[idx].astype(np.float32)[..., None] / 255.0
+            imgs = put(data.train_images[idx].astype(np.float32)[..., None] / 255.0)
             if augment:
-                # the global batch's draws on every rank, then its rows
+                # this rank's rows only, with the global batch's draws
                 imgs = augment_classification_batch(
-                    fold_in(aug_key, global_step), to_dev(imgs), cutout=cutout, dim=aug_dim, fade=aug_fade
+                    fold_in(aug_key, global_step), imgs, cutout=cutout, dim=aug_dim, fade=aug_fade,
+                    rows=None if mesh is None else mesh_lib.process_local_batch_slice(len(idx), mesh),
+                    global_batch=len(idx),
                 )
-                imgs = mesh_lib.local_rows(mesh, imgs)
-            else:
-                imgs = put(imgs)
             labs = put(np.asarray(data.train_labels[idx]))
             metrics = train_step(state, imgs, labs)
             if ema_params is not None:
@@ -381,9 +382,22 @@ def main(argv: list[str] | None = None) -> None:
     setup_logger("chessvision_tpu_torch")
     from chessvision_tpu_torch.parallel import mesh as mesh_lib
 
+    # leave the group at the end only where this call joined it
+    joined = not torch.distributed.is_initialized()
     mesh_lib.initialize_distributed(
         args.coordinator, args.num_processes, args.process_id, backend=mesh_lib.default_backend(args.device)
     )
+    try:
+        _run(args)
+    finally:
+        if joined:
+            mesh_lib.shutdown_distributed()
+
+
+def _run(args: argparse.Namespace) -> None:
+    """Train, then on rank 0 promote and evaluate."""
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+
     run, checkpoint_path = train_model(
         model_id=args.model_id,
         epochs=args.epochs,

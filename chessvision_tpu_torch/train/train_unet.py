@@ -133,6 +133,8 @@ def train_model(
         # equal rows on every rank: the gradient mean is then the global one
         batch_size = max(batch_size, mesh.size)
         batch_size -= batch_size % mesh.size
+    else:
+        mesh_lib.log_unused_cards(dev, __name__)
 
     if resume:
         # the architecture comes from the checkpoint; the caller's training
@@ -327,15 +329,15 @@ def train_model(
         for i, idx in enumerate(data_lib.batches(n_train, batch_size, rng=rng_np, weights=weights, drop_last=True)):
             imgs = data.train_images[idx].astype(np.float32) / 255.0
             msks = np.asarray(data.train_masks[idx], np.float32)
+            imgs, msks = put(imgs), put(msks)
             if augment:
-                # every rank draws the global batch's augmentation and keeps
-                # its rows, so a mesh step sees the one-process step's batch
+                # this rank's rows only, with the global batch's draws: the
+                # one-process batch's augmentation sliced to them, bit for bit
                 imgs, msks = augment_segmentation_batch(
-                    fold_in(aug_key, global_step), to_dev(imgs), to_dev(msks), illum_gradient=aug_illum_gradient
+                    fold_in(aug_key, global_step), imgs, msks, illum_gradient=aug_illum_gradient,
+                    rows=None if mesh is None else mesh_lib.process_local_batch_slice(len(idx), mesh),
+                    global_batch=len(idx),
                 )
-                imgs, msks = mesh_lib.local_rows(mesh, imgs), mesh_lib.local_rows(mesh, msks)
-            else:
-                imgs, msks = put(imgs), put(msks)
             metrics = train_step(state, imgs, msks)
             if ema_params is not None:
                 ema_params = steps.ema_update(ema_params, state.params, ema_decay)
@@ -467,9 +469,22 @@ def main(argv: list[str] | None = None) -> None:
     # flags or torchrun's environment; one plain process is a no-op)
     from chessvision_tpu_torch.parallel import mesh as mesh_lib
 
+    # leave the group at the end only where this call joined it
+    joined = not torch.distributed.is_initialized()
     mesh_lib.initialize_distributed(
         args.coordinator, args.num_processes, args.process_id, backend=mesh_lib.default_backend(args.device)
     )
+    try:
+        _run(args)
+    finally:
+        if joined:
+            mesh_lib.shutdown_distributed()
+
+
+def _run(args: argparse.Namespace) -> None:
+    """Train, then on rank 0 promote and evaluate."""
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+
     run, checkpoint_path = train_model(
         epochs=args.epochs,
         batch_size=args.batch_size,

@@ -1,9 +1,12 @@
-"""Drive the PyTorch port of chessvision on one NVIDIA GPU and check it.
+"""Drive the PyTorch port of chessvision on NVIDIA GPUs and check it.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-(``--load-client``, ``--mesh-child`` and ``--cli-trainers`` are the
-script's own child processes.)
+Phases 1–15 need one card; phase 16 runs over every card of a machine
+that shows two or more, or over ``--cards N`` (which fails with fewer);
+``--only multicard`` builds the kernels and runs phase 16 alone.
+(``--load-client``, ``--mesh-child``, ``--cli-trainers`` and
+``--multicard-child`` are the script's own child processes.)
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -67,9 +70,27 @@ Phases (any failure exits non-zero without the final result line):
    streaming example's boards/s), the raw stream of a one-process
    ``Engine(mesh=create_mesh())`` against the mesh-free stream, ``bash -n``
    on every ``scripts/bin/torch_*.sh``, ``torch_evaluate.sh`` on phase 12's
-   test root and ``torch_serve.sh --local`` answering one post.
+   test root and ``torch_serve.sh --local`` answering one post;
+16. multicard (``parallel/mesh.py`` over NCCL, one process per card,
+   ``cuda:0``…``cuda:N-1``): (a) at two seeds, each trainer's full-width
+   step over N ranks against one process on the same global batch
+   (``MESH_TOL`` raised to what the precision moves one process from a
+   float64 witness, and a control without collectives outside it),
+   equal across ranks, every rank's augmented rows equal to the
+   one-process augmentation's rows bit for bit; (b) step ms a rank and
+   images/s over the ranks, strong (UNet B=32, ResNet18 B=256 split over
+   N) and weak (that batch on every rank), beside one process on one card;
+   (c) ``NPROC=N scripts/bin/torch_train_distributed.sh --epochs 1`` and
+   ``torchrun --nproc-per-node N -m chessvision_tpu_torch.train.train_classifier
+   --epochs 1`` through torchrun's environment, every process exiting 0,
+   rank 0's checkpoints served by ``ChessVision``; (d) ``Engine(mesh=…)``
+   at B=128 and its raw stream against the one-process result; (e) K1 on
+   every card against its plain version, timed at the per-rank
+   augmentation shapes; (f) each rank holds a context and memory on its
+   own card only (libcuda's record of each process, and nvidia-smi while
+   the ranks are alive).
 
-Phases 7–10 and 13–15 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–16 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -86,8 +107,10 @@ line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -698,9 +721,9 @@ def phase_server(k1, frames8) -> tuple[int, dict]:
 # -- 10–12. augmentation, training and evaluation --------------------------------------------
 
 
-def seg_batch(seed: int, b: int, size: int = 256):
+def seg_batch(seed: int, b: int, size: int = 256, host: bool = False):
     """(b, size, size, 3) float32 synthetic frames in [0, 1] and their
-    (b, size, size) board masks, on the card."""
+    (b, size, size) board masks, on the card (numpy with ``host``)."""
     import numpy as np
     import torch
 
@@ -710,12 +733,14 @@ def seg_batch(seed: int, b: int, size: int = 256):
     pairs = [board_frame(rng, size) for _ in range(b)]
     imgs = np.stack([p[0] for p in pairs]).astype(np.float32) / 255.0
     masks = np.stack([quad_mask(p[1], size) for p in pairs]).astype(np.float32) / 255.0
+    if host:
+        return imgs, masks
     return torch.from_numpy(imgs).cuda(), torch.from_numpy(masks).cuda()
 
 
-def cls_batch(seed: int, b: int):
+def cls_batch(seed: int, b: int, host: bool = False):
     """(b, 64, 64, 1) float32 synthetic squares in [0, 1] and their labels,
-    on the card."""
+    on the card (numpy with ``host``)."""
     import numpy as np
     import torch
 
@@ -724,7 +749,24 @@ def cls_batch(seed: int, b: int):
     rng = np.random.default_rng(seed)
     labels = np.arange(b) % len(SQUARE_CLASS_DIRS)
     crops = np.stack([square_crop(rng, SQUARE_CLASS_DIRS[c]) for c in labels]).astype(np.float32) / 255.0
+    if host:
+        return crops[..., None], labels
     return torch.from_numpy(crops[..., None]).cuda(), torch.from_numpy(labels).cuda()
+
+
+def rows_on_card(mesh, host_arrays, n: int):
+    """This rank's rows of the global host batches (each tiled ``n`` times
+    along the batch), on its card, and those rows' (start, stop) in the
+    global batch (None in one process, which takes them all)."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    tiled = [np.concatenate([a] * n) if n > 1 else a for a in host_arrays]
+    rows = None if mesh is None else mesh_lib.process_local_batch_slice(len(tiled[0]), mesh)
+    return [mesh_lib.make_global_batch(mesh, a).to(dev) for a in tiled], rows, len(tiled[0])
 
 
 def phase_augment(k1, seed: int) -> tuple[int, dict, dict]:
@@ -814,55 +856,61 @@ def same_keys_and_shapes(path: str, reference: str) -> list[str]:
     return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
 
 
-def time_train_steps(k1, kind: str, seed: int, profile: bool = False) -> dict:
+def time_train_steps(k1, kind: str, seed: int, profile: bool = False, mesh=None, per_rank: bool = False) -> dict:
     """20 train steps at the trainers' configuration on device-resident
     batches, augmentation included and one host sync a step (the loss), as
     the trainers run: step ms, images/s and K1 launches a step; with
-    ``profile``, the device's busy share over 3 more steps and the top ops."""
+    ``profile``, the device's busy share over 3 more steps and the top ops.
+    On a ``mesh`` each rank uploads and augments its rows of the global
+    batch (the shipping batch, or with ``per_rank`` the shipping batch on
+    every rank) and steps on them; images/s counts every rank's."""
     import torch
 
     from chessvision_tpu_torch import models
     from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
     from chessvision_tpu_torch.train import steps
     from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch, fold_in
 
+    n = mesh.size if mesh is not None and per_rank else 1
     torch.manual_seed(seed)
     if kind == "unet":
         model = models.UNet(base=32)
-        imgs, targets = seg_batch(seed, 32)
+        (imgs, targets), rows, b = rows_on_card(mesh, seg_batch(seed, 32, host=True), n)
         tx = steps.Chain([steps.ClipByGlobalNorm(1.0), steps.AddDecayedWeights(1e-8),
                           steps.inject_hyperparams(steps.rmsprop, learning_rate=3e-5, momentum=0.999, eps=1e-8)])
-        train_step = steps.make_seg_train_step()
+        train_step = steps.make_seg_train_step(mesh)
 
         def batch(i):
-            return augment_segmentation_batch(fold_in(seed, i), imgs, targets)
+            return augment_segmentation_batch(fold_in(seed, i), imgs, targets, rows=rows, global_batch=b)
     else:
         model = models.resnet18(width=64)
-        imgs, targets = cls_batch(seed, 256)
+        (imgs, targets), rows, b = rows_on_card(mesh, cls_batch(seed, 256, host=True), n)
         tx = steps.adam(steps.exponential_decay(1e-3, 16, 0.1, staircase=True))
-        train_step = steps.make_cls_train_step()
+        train_step = steps.make_cls_train_step(mesh)
 
         def batch(i):
-            return augment_classification_batch(fold_in(seed, i), imgs), targets
+            return augment_classification_batch(fold_in(seed, i), imgs, rows=rows, global_batch=b), targets
 
-    model = set_compute_dtype(model, torch.bfloat16, master_weights=True).cuda()
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = mesh_lib.replicate(mesh, set_compute_dtype(model, torch.bfloat16, master_weights=True).to(dev))
     state = steps.TrainState.create(model, tx)
     for i in range(3):  # warm-up: cuDNN algorithm choice
         train_step(state, *batch(i))["loss"].item()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     iters = 20
     k1.launches = 0
     losses = []
     t0 = time.perf_counter()
     for i in range(iters):
         losses.append(train_step(state, *batch(3 + i))["loss"].item())
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     launches = k1.launches
     flops_fwd = conv_flops(model, imgs[:1]) * imgs.shape[0]
-    b = imgs.shape[0]
     res = {
-        "kind": kind, "batch": b, "shape": list(imgs.shape), "step_ms": step_ms, "images_per_s": b * 1e3 / step_ms,
+        "kind": kind, "batch": b, "rows": imgs.shape[0], "shape": list(imgs.shape), "step_ms": step_ms,
+        "images_per_s": b * 1e3 / step_ms,
         "k1_launches_per_step": launches / iters, "train_flops_per_step": 3 * flops_fwd,
         "tflops_per_s": 3 * flops_fwd / step_ms / 1e9, "bf16_peak_share": 3 * flops_fwd / step_ms / 1e9 / 989.0,
         "first_loss": losses[0], "last_loss": losses[-1],
@@ -1024,16 +1072,34 @@ def phase_eval(k1, seed: int, root: str) -> tuple[int, dict]:
     return launches, agg
 
 
-# two ranks against one process.  float32 (TF32 off): the CPU test's bounds
+# N ranks against one process.  float32 (TF32 off): the CPU test's bounds
 # (tests/test_torch_mesh.py).  bfloat16 keeps 8 significant bits (2^-8 =
 # 3.9e-3 a rounding) and cuDNN picks its algorithms by the batch (16 or 128
 # rows a rank, 32 or 256 in one process), so an output element may round
 # one step apart: bounds a few times over the differences measured on an
-# H100 (loss 1.2e-4, statistics 2.1e-4, parameter norm 6.2e-6)
+# H100 (loss 1.2e-4, statistics 2.1e-4, parameter norm 6.2e-6).  "grad"
+# is the all-reduced gradient (max |difference| over max |gradient|):
+# float32 as the statistics, bfloat16 one rounding step.  The accuracy is
+# counted in samples of the global batch: a bfloat16 argmax within a
+# rounding step of a tie may fall either way.
+#
+# Each bound is the larger of this table and twice the one-process
+# result's own distance from a float64 witness of the same step (same
+# weights, same augmented rows): N ranks may differ from one process by
+# no more than twice what the precision alone moves one process.  Adam's
+# first step moves a parameter by about ±lr whatever its gradient, and
+# parameters whose gradient lies within its rounding take either sign, so
+# the parameter norm's difference is a sum of many terms of either sign:
+# its bound is also four times the spread such a sum has for the
+# one-process step's per-parameter differences from the witness
+# (``param_norm_spread``).  A control step on each rank's rows without the collectives (no
+# BatchNorm or gradient all-reduce: what a lost collective gives) must
+# fall outside the bounds of the gradient and the statistics.
 MESH_TOL = {
-    "float32": {"loss": 1e-6, "metric": 1e-6, "param_norm": 1e-6, "stats": 1e-5},
-    "bfloat16": {"loss": 1e-3, "metric": 1e-2, "param_norm": 1e-4, "stats": 2e-3},
+    "float32": {"loss": 1e-6, "metric": 1e-6, "param_norm": 1e-6, "stats": 1e-5, "grad": 1e-5},
+    "bfloat16": {"loss": 1e-3, "metric": 1e-2, "param_norm": 1e-4, "stats": 2e-3, "grad": 3.9e-3},
 }
+ACCURACY_SAMPLES = {"float32": 0, "bfloat16": 1}
 
 
 def child_env() -> dict:
@@ -1075,16 +1141,40 @@ def run_children(argvs: list[list[str]], timeout: int) -> list[str]:
     return outs
 
 
-def parity_steps(k1, mesh, seed: int, timed: int = 5) -> dict:
+@contextlib.contextmanager
+def float64_kept():
+    """``Tensor.float()`` leaves float64 tensors as they are: the models'
+    float32 layers (BatchNorm, heads) then compute a float64 witness in
+    float64 throughout."""
+    import torch
+
+    real = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self if self.dtype == torch.float64 else real(self, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def parity_steps(k1, mesh, seed: int, save_dir: str, timed: int = 5, witness: bool = False) -> dict:
     """One train step of each trainer's model at full width (UNet base 32 on
     B=32 global 256² frames, ResNet18 width 64 on B=256 global squares),
     in bfloat16 over float32 master weights and in float32 (TF32 off), from
-    the seeded state, on this rank's rows of the augmented global batch
-    (every rank augments the whole batch, as the trainers do).  Records
-    loss, metric, parameter norm and BatchNorm statistics after the step,
-    K1's launches and its error against the plain version on the
-    augmentation, then the ms of ``timed`` more bfloat16 steps
-    (collectives included)."""
+    the seeded state, on this rank's rows of the global batch, uploaded and
+    augmented alone as the trainers do.  Records loss, metric, parameter
+    norm and BatchNorm statistics after the step, the gradient the
+    optimizer was handed (its SHA-256; rank 0 and one process write it to
+    ``save_dir`` as ``<kind>_<dtype>_grad.npy``), K1's launches and its
+    error against the plain version on the augmentation, then the ms of
+    ``timed`` more bfloat16 steps (collectives included).  Each kind's
+    augmented rows go to ``save_dir`` as ``<kind>_rank<r>_<i>.npy``.  On
+    a mesh of several ranks also a ``control``: the same step on the rank's
+    rows without the collectives.  ``witness``: also each kind's step in
+    float64 (``<kind> float64``), and for each step the spread of its
+    parameter norm's difference from the witness (``param_norm_spread``,
+    see ``MESH_TOL``)."""
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -1095,57 +1185,153 @@ def parity_steps(k1, mesh, seed: int, timed: int = 5) -> dict:
     from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch, fold_in
     from chessvision_tpu_torch.utils import full_f32
 
-    out = {}
-    for kind, dtype in (("unet", torch.bfloat16), ("resnet18", torch.bfloat16), ("unet", torch.float32),
-                        ("resnet18", torch.float32)):
-        name = f"{kind} {str(dtype).split('.')[-1]}"
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    rank = mesh.rank if mesh is not None else 0
+
+    def one_step(kind, dtype, x, y, step_mesh, tag):
         torch.manual_seed(seed)
         if kind == "unet":
             model = models.UNet(base=32)
-            imgs, targets = seg_batch(seed, 32)
             tx = steps.Chain([steps.ClipByGlobalNorm(1.0), steps.AddDecayedWeights(1e-8),
                               steps.inject_hyperparams(steps.rmsprop, learning_rate=3e-5, momentum=0.999, eps=1e-8)])
-            step, metric = steps.make_seg_train_step(mesh), "dice"
-
-            def augment(i):
-                return augment_segmentation_batch(fold_in(seed, i), imgs, targets)
+            step, metric = steps.make_seg_train_step(step_mesh), "dice"
         else:
             model = models.resnet18(width=64)
-            imgs, targets = cls_batch(seed, 256)
             tx = steps.adam(1e-3)
-            step, metric = steps.make_cls_train_step(mesh), "accuracy"
+            step, metric = steps.make_cls_train_step(step_mesh), "accuracy"
+        if dtype == torch.float64:
+            model, x = model.double().to(dev), x.double()
+            y = y.double() if kind == "unet" else y
+        else:
+            model = set_compute_dtype(model, dtype, master_weights=True).to(dev)
+        state = steps.TrainState.create(mesh_lib.replicate(mesh, model), tx)
+        grads = []
+        state.apply_gradients = lambda g: (grads.append(torch.cat([t.detach().double().ravel() for t in g])),
+                                           steps.TrainState.apply_gradients(state, g))
+        with full_f32(), float64_kept() if dtype == torch.float64 else contextlib.nullcontext():
+            m = step(state, x, y)
+        del state.apply_gradients
+        grad = grads[0].cpu().numpy()
+        if dtype != torch.float64:
+            grad = grad.astype(np.float32)  # the float32 gradient, exactly
+        if rank == 0:
+            np.save(os.path.join(save_dir, f"{tag}_grad.npy"), grad)
+        stats = [b_.detach().double().cpu().numpy().ravel() for n_, b_ in state.model.named_buffers()
+                 if n_.endswith(("running_mean", "running_var"))]
+        rec = {"loss": float(m["loss"]), "metric": float(m[metric]),
+               "param_norm": float(np.sqrt(sum(float(torch.sum(p.detach().double() ** 2)) for p in state.params))),
+               "stats": np.concatenate(stats).tolist(), "grad_sha": hashlib.sha256(grad.tobytes()).hexdigest()}
+        after = torch.cat([p.detach().double().ravel() for p in state.params]) if witness else None
+        return rec, state, step, after
+
+    def spread(a, b):
+        """The spread of the parameter norm's relative difference if the
+        per-parameter differences between ``a`` and ``b`` had random signs."""
+        return float(torch.sqrt(torch.sum((a * a - b * b) ** 2)) / (2 * torch.sum(b * b)))
+
+    out, witness_after = {}, {}
+    for kind, dtype in (("unet", torch.bfloat16), ("resnet18", torch.bfloat16), ("unet", torch.float32),
+                        ("resnet18", torch.float32)):
+        dt = str(dtype).split(".")[-1]
+        name = f"{kind} {dt}"
+        if kind == "unet":
+            (imgs, targets), rows, b = rows_on_card(mesh, seg_batch(seed, 32, host=True), 1)
 
             def augment(i):
-                return augment_classification_batch(fold_in(seed, i), imgs), targets
+                return augment_segmentation_batch(fold_in(seed, i), imgs, targets, rows=rows, global_batch=b)
+        else:
+            (imgs, targets), rows, b = rows_on_card(mesh, cls_batch(seed, 256, host=True), 1)
 
-        model = mesh_lib.replicate(mesh, set_compute_dtype(model, dtype, master_weights=True).cuda())
-        state = steps.TrainState.create(model, tx)
+            def augment(i):
+                return augment_classification_batch(fold_in(seed, i), imgs, rows=rows, global_batch=b), targets
+
         k1.launches = 0
         (x, y), calls = capture_k1(k1, lambda: augment(0))
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         launches = k1.launches
         errs = check_captured(k1, calls, f"parallel {name} augmentation")
-        with full_f32():
-            m = step(state, mesh_lib.local_rows(mesh, x), mesh_lib.local_rows(mesh, y))
-        stats = [b.detach().double().cpu().numpy().ravel() for n, b in model.named_buffers()
-                 if n.endswith(("running_mean", "running_var"))]
-        out[name] = {
-            "loss": float(m["loss"]), "metric": float(m[metric]),
-            "param_norm": float(np.sqrt(sum(float(torch.sum(p.detach().double() ** 2)) for p in state.params))),
-            "stats": np.concatenate(stats).tolist(), "k1_launches": launches,
-            "k1_err": max(e for case in errs.values() for e in case.values()),
-        }
-        if dtype == torch.float32:
+        if dtype == torch.bfloat16:
+            for i, t in enumerate((x, y) if kind == "unet" else (x,)):
+                np.save(os.path.join(save_dir, f"{kind}_rank{rank}_{i}.npy"), t.cpu().numpy())
+        out[name], state, step, after = one_step(kind, dtype, x, y, mesh, f"{kind}_{dt}")
+        out[name].update(batch=b, k1_launches=launches,
+                         k1_err=max(e for case in errs.values() for e in case.values()))
+        if mesh is not None and mesh.size > 1:
+            out[name]["control"] = one_step(kind, dtype, x, y, None, f"{kind}_{dt}_control")[0]
+        if witness and dtype == torch.bfloat16:
+            out[f"{kind} float64"], *_, witness_after[kind] = one_step(kind, torch.float64, x, y, None,
+                                                                        f"{kind}_float64")
+        if witness:
+            out[name]["param_norm_spread"] = spread(after, witness_after[kind])
+        del after
+        if dtype == torch.float32 or not timed:
             continue
-        xs, ys = mesh_lib.local_rows(mesh, x), mesh_lib.local_rows(mesh, y)
-        step(state, xs, ys)["loss"].item()  # warm-up at the second step
-        torch.cuda.synchronize()
+        step(state, x, y)["loss"].item()  # warm-up at the second step
+        torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for _ in range(timed):
-            step(state, xs, ys)["loss"].item()
-        torch.cuda.synchronize()
+            step(state, x, y)["loss"].item()
+        torch.cuda.synchronize(dev)
         out[name]["step_ms"] = (time.perf_counter() - t0) * 1e3 / timed
     return out
+
+
+def parity_line(par: dict) -> str:
+    def short(d):
+        return json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+
+    return (f"errors {short(par['errors'])} (bounds {short(par['bounds'])}; accuracy in samples); the float64 "
+            f"witness's distance from one process {short(par['one_vs_witness'])}, from the ranks "
+            f"{short(par['ranks_vs_witness'])}" + (f"; control without collectives {short(par['control_errors'])}"
+                                                    if par["control_errors"] else ""))
+
+
+def parity_problems(label: str, name: str, recs: list[dict], one: dict, rank_dir: str, one_dir: str) -> tuple[dict, list]:
+    """Hold ``recs`` (each rank's ``parity_steps`` record of ``name``)
+    against the one-process record ``one[name]`` by ``MESH_TOL``, each
+    bound raised to twice the one-process result's distance from the
+    float64 witness ``one["<kind> float64"]``; the ranks must agree, and
+    the control (no collectives) must fall outside the bounds of the
+    gradient and the statistics.  Returns the numbers and the problems."""
+    import numpy as np
+
+    kind, dt = name.split()
+    tol, o, w, r0 = MESH_TOL[dt], one[name], one[f"{kind} float64"], recs[0]
+    grads = {"one": np.load(os.path.join(one_dir, f"{kind}_{dt}_grad.npy")),
+             "witness": np.load(os.path.join(one_dir, f"{kind}_float64_grad.npy")),
+             "ranks": np.load(os.path.join(rank_dir, f"{kind}_{dt}_grad.npy"))}
+    if "control" in r0:
+        grads["control"] = np.load(os.path.join(rank_dir, f"{kind}_{dt}_control_grad.npy"))
+
+    def dist(key, a, b, ga, gb):
+        if key == "grad":
+            return rel(ga, gb)
+        if key == "metric" and kind == "resnet18":  # samples of the global batch
+            return abs(a[key] - b[key]) * o["batch"]
+        return rel(a[key], b[key])
+
+    res = {"errors": {}, "bounds": {}, "one_vs_witness": {}, "ranks_vs_witness": {}, "control_errors": {}}
+    problems = []
+    for key in tol:
+        floor = ACCURACY_SAMPLES[dt] if key == "metric" and kind == "resnet18" else tol[key]
+        if key == "param_norm":
+            floor = max(floor, 4 * o["param_norm_spread"])
+        res["one_vs_witness"][key] = dist(key, o, w, grads["one"], grads["witness"])
+        res["ranks_vs_witness"][key] = dist(key, r0, w, grads["ranks"], grads["witness"])
+        res["bounds"][key] = max(floor, 2 * res["one_vs_witness"][key])
+        res["errors"][key] = dist(key, r0, o, grads["ranks"], grads["one"])
+        if "control" in r0:
+            res["control_errors"][key] = dist(key, r0["control"], o, grads["control"], grads["one"])
+    for key in ("loss", "metric", "param_norm", "stats", "grad_sha"):
+        if any(r[key] != r0[key] for r in recs[1:]):
+            problems.append(f"(a) {name}: {key} differs between the ranks")
+    bad = {k: v for k, v in res["errors"].items() if not v <= res["bounds"][k]}
+    if bad:
+        problems.append(f"(a) {name}: the {label} step differs from one process beyond the bounds: {bad}")
+    unseen = [k for k in ("grad", "stats") if "control" in r0 and not res["control_errors"][k] > res["bounds"][k]]
+    if unseen:
+        problems.append(f"(a) {name}: the control without collectives stays inside the bounds of {unseen}")
+    return res, problems
 
 
 def mesh_child(rank: int, world: int, port: int, out_dir: str, seed: int) -> int:
@@ -1165,7 +1351,7 @@ def mesh_child(rank: int, world: int, port: int, out_dir: str, seed: int) -> int
     mesh_lib.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
     mesh = mesh_lib.create_mesh(device="cuda")
     rec = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device), "backend": mesh.backend}
-    rec["steps"] = parity_steps(k1, mesh, seed)
+    rec["steps"] = parity_steps(k1, mesh, seed, out_dir)
 
     uniq = board_frames(seed + 1, 32)[0]
     frames128 = np.concatenate([uniq] * 4)
@@ -1185,7 +1371,7 @@ def mesh_child(rank: int, world: int, port: int, out_dir: str, seed: int) -> int
     np.save(os.path.join(out_dir, f"quads{rank}.npy"), res.quadrangle)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
-    torch.distributed.destroy_process_group()
+    mesh_lib.shutdown_distributed()
     return 0
 
 
@@ -1205,6 +1391,9 @@ def cli_trainers_child(root: str, port: int, out_dir: str, seed: int) -> int:
     os.environ["CVTPU_STORE_ROOT"] = os.path.join(root, "store")
     cluster = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "1", "--process-id", "0"]
     common = ["--epochs", "1", "--skip-eval", "--seed", str(seed)]
+    # one group for both command lines (their flags then find it joined): a
+    # trainer's main leaves only a group it joined itself
+    mesh_lib.initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
     rec = {}
     for kind, main_fn, argv in (
         ("unet", train_unet.main, ["--base", "32", "--batch-size", "32", "--run-name", "mesh-unet"]),
@@ -1220,7 +1409,7 @@ def cli_trainers_child(root: str, port: int, out_dir: str, seed: int) -> int:
                      "backend": torch.distributed.get_backend(), "world": mesh_lib.process_count()}
     with open(os.path.join(out_dir, "cli.json"), "w") as f:
         json.dump(rec, f)
-    torch.distributed.destroy_process_group()
+    mesh_lib.shutdown_distributed()
     return 0
 
 
@@ -1250,32 +1439,28 @@ def phase_parallel(k1, seed: int, root: str, res128, frames8) -> tuple[int, dict
     run_children([["--mesh-child", str(r), "2", str(port), out_dir, str(seed)] for r in range(2)], timeout=900)
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
     log(f"[parallel] two gloo ranks on {ranks[0]['device']} done in {time.perf_counter() - t0:.1f} s")
-    one = parity_steps(k1, None, seed)
+    one_dir = tempfile.mkdtemp(prefix="one-", dir=root)
+    one = parity_steps(k1, None, seed, one_dir, witness=True)
+    names = [k for k in one if not k.endswith("float64")]
     launches = sum(r["steps"][k]["k1_launches"] for r in ranks for k in r["steps"])
-    launches += sum(one[k]["k1_launches"] for k in one)
+    launches += sum(one[k]["k1_launches"] for k in names)
     worst = 0.0
     res = {"steps": {}}
     problems = []  # (a) and (c) are both read before the phase fails
-    for name in one:
+    for name in names:
         a, b, o = ranks[0]["steps"][name], ranks[1]["steps"][name], one[name]
-        for key in ("loss", "metric", "param_norm", "stats"):
-            if a[key] != b[key]:
-                problems.append(f"(a) {name}: {key} differs between the ranks")
-        tol = MESH_TOL[name.split()[1]]
-        errs = {key: rel(a[key], o[key]) for key in tol}
+        par, bad = parity_problems("two-rank", name, [a, b], one, out_dir, one_dir)
+        problems += bad
         worst = max(worst, a["k1_err"], b["k1_err"], o["k1_err"])
-        res["steps"][name] = {"errors_vs_one_process": errs, "loss": a["loss"], "metric": a["metric"]}
+        res["steps"][name] = dict(par, loss=a["loss"], metric=a["metric"])
         timing = ""
         if "step_ms" in a:
             res["steps"][name].update(mesh_step_ms=[a["step_ms"], b["step_ms"]], one_process_step_ms=o["step_ms"])
             timing = (f"; step {a['step_ms']:.2f} / {b['step_ms']:.2f} ms a rank against {o['step_ms']:.2f} ms in one "
                       f"process (two ranks share one card and stage every collective through host memory: no "
                       f"scaling is measured)")
-        log(f"[parallel] (a) {name} step, 2 gloo ranks vs one process: relative errors {json.dumps(errs)} "
-            f"(bounds {json.dumps(tol)}); equal across ranks{timing}")
-        bad = {k: v for k, v in errs.items() if not v <= tol[k]}
-        if bad:
-            problems.append(f"(a) {name}: the two-rank step differs from the one-process step beyond the bounds: {bad}")
+        log(f"[parallel] (a) {name} step, 2 gloo ranks vs one process: {parity_line(par)}; equal across ranks: "
+            f"{not any(p.startswith(f'(a) {name}: ') and 'between the ranks' in p for p in problems)}{timing}")
 
     t0 = time.perf_counter()
     run_children([["--cli-trainers", root, str(free_port()), out_dir, str(seed)]], timeout=900)
@@ -1458,7 +1643,6 @@ def load_example(name: str):
 def run_example(k1, fn):
     """``fn()`` with K1 captured and counted from 0 and its printed lines
     caught: (result, captured calls, launches, lines)."""
-    import contextlib
     import io
 
     import torch
@@ -1636,6 +1820,478 @@ def phase_launchers(k1, seed: int, root: str, card: str, frames8, agg12: dict) -
     return launches, res
 
 
+# -- 16. across cards -------------------------------------------------------------------------
+
+
+def active_contexts() -> list[int]:
+    """The CUDA device ordinals on which this process holds an active
+    primary context, from libcuda (``cuDevicePrimaryCtxGetState``): what
+    a process costs a card, whatever torch itself tracks."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    p_int, p_uint = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint)
+    for name, args in (("cuInit", [ctypes.c_uint]), ("cuDeviceGetCount", [p_int]),
+                       ("cuDeviceGet", [p_int, ctypes.c_int]),
+                       ("cuDevicePrimaryCtxGetState", [ctypes.c_int, p_uint, p_int])):
+        getattr(cuda, name).argtypes, getattr(cuda, name).restype = args, ctypes.c_int
+    n = ctypes.c_int()
+    if cuda.cuInit(0) != 0 or cuda.cuDeviceGetCount(ctypes.byref(n)) != 0:
+        fail("libcuda did not initialize")
+    out = []
+    for i in range(n.value):
+        dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        if cuda.cuDeviceGet(ctypes.byref(dev), i) != 0 or \
+                cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(active)) != 0:
+            fail(f"libcuda did not report card {i}")
+        if active.value:
+            out.append(i)
+    return out
+
+
+def card_uuid(dev) -> str:
+    """The card's UUID as nvidia-smi prints it (``GPU-…``), "" where torch
+    does not report it."""
+    import torch
+
+    uuid = getattr(torch.cuda.get_device_properties(dev), "uuid", None)
+    return "" if uuid is None else "GPU-" + str(uuid).removeprefix("GPU-")
+
+
+def card_bus(dev) -> str:
+    """The card's PCI address as nvidia-smi prints it (00000000:BB:DD.0)."""
+    import torch
+
+    p = torch.cuda.get_device_properties(dev)
+    return f"{getattr(p, 'pci_domain_id', 0):08X}:{getattr(p, 'pci_bus_id', 0):02X}:{getattr(p, 'pci_device_id', 0):02X}.0"
+
+
+def smi_apps() -> tuple[dict, list[str]]:
+    """nvidia-smi's compute processes as {pid: {gpu bus id: used MiB}}, and
+    every card as "index bus-id: used MiB" (bus ids, because a sealed
+    machine may redact the UUIDs)."""
+    def query(*args):
+        out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, timeout=60)
+        return [[x.strip() for x in line.split(",")] for line in out.stdout.strip().splitlines() if line.strip()]
+
+    apps: dict = {}
+    for pid, bus, mem in query("--query-compute-apps=pid,gpu_bus_id,used_memory"):
+        if pid.isdigit():
+            apps.setdefault(int(pid), {})[bus] = mem
+    return apps, [f"{i} {bus}: {mem} MiB" for i, bus, mem in query("--query-gpu=index,pci.bus_id,memory.used")]
+
+
+def hold_until_released(out_dir: str, rank: int, timeout: float = 600.0) -> None:
+    """Tell the parent this rank is ready (``ready<rank>``) and wait, still
+    holding its memory, until it writes ``release``."""
+    open(os.path.join(out_dir, f"ready{rank}"), "w").close()
+    deadline = time.time() + timeout
+    while not os.path.exists(os.path.join(out_dir, "release")):
+        if time.time() > deadline:
+            fail(f"rank {rank}: the parent never released the ranks")
+        time.sleep(0.05)
+
+
+def multicard_child(rank: int, world: int, port: int, out_dir: str, seed: int) -> int:
+    """One rank of phase 16 on ``cuda:<rank>`` over NCCL, as a trainer's
+    flags start it: (a) the parity steps (augmented rows written for the
+    parent), (b) the scaling steps, (d) ``Engine(mesh=…)`` and its raw
+    stream at B=128, (e) K1 captured on this card's augmentation inputs,
+    held against its plain version and timed, (f) the cards this process
+    holds a context on.  Writes ``rank<rank>.json``, then holds its memory
+    until the parent has read nvidia-smi."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chessvision_tpu_torch import constants, profiling
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.parallel import mesh as mesh_lib
+    from chessvision_tpu_torch.synthetic import board_frames
+    from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch
+
+    t_start = time.perf_counter()
+    mesh_lib.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="nccl")
+    mesh = mesh_lib.create_mesh(device="cuda")
+    dev = mesh.device
+    rec = {"rank": mesh.rank, "size": mesh.size, "device": str(dev), "backend": mesh.backend, "pid": os.getpid(),
+           "current_device": torch.cuda.current_device(), "uuid": card_uuid(dev), "bus": card_bus(dev),
+           "join_s": time.perf_counter() - t_start}
+    launches = 0
+
+    # (a) parity at two seeds (the second untimed), (b) scaling
+    rec["steps"] = {}
+    for s in (seed, seed + 1):
+        os.makedirs(os.path.join(out_dir, f"seed{s}"), exist_ok=True)
+        rec["steps"][str(s)] = parity_steps(k1, mesh, s, os.path.join(out_dir, f"seed{s}"), timed=5 if s == seed else 0)
+        launches += sum(v["k1_launches"] for v in rec["steps"][str(s)].values())
+    rec["scaling"] = {}
+    for kind in ("unet", "resnet18"):
+        for mode in ("strong", "weak"):
+            t = time_train_steps(k1, kind, seed, mesh=mesh, per_rank=mode == "weak")
+            launches += round(t["k1_launches_per_step"] * 20)
+            rec["scaling"][f"{kind} {mode}"] = t
+
+    # (d) inference over the mesh, and the raw stream on the same engine
+    uniq = board_frames(seed + 1, 32)[0]
+    frames128 = np.concatenate([uniq] * 4)
+    cv = ChessVision(device="cuda", mesh=mesh)
+    cv.engine.process_batch(frames128)  # warm-up
+    torch.cuda.synchronize(dev)
+    k1.launches = 0
+    res, calls = capture_k1(k1, lambda: cv.engine.process_batch(frames128))
+    torch.cuda.synchronize(dev)
+    rec["engine_k1_launches"] = k1.launches
+    launches += k1.launches
+    errs = check_captured(k1, calls, "multicard engine")
+    rec["engine_rows"] = int(calls["warp_twopass"][0][0].shape[0])
+    del calls
+    rec["fens"], rec["found"] = list(res.fens), res.board_found.tolist()
+    np.save(os.path.join(out_dir, f"quads{rank}.npy"), res.quadrangle)
+    rec["engine_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cv.engine.process_batch(frames128)
+        rec["engine_ms"].append((time.perf_counter() - t0) * 1e3)
+    batches = [frames128, np.roll(frames128, 5, axis=0)]
+    k1.launches = 0
+    outs = list(cv.engine.run_stream(batches, kind="raw"))
+    torch.cuda.synchronize(dev)
+    rec["stream_k1_launches"] = k1.launches
+    launches += k1.launches
+    rec["stream"] = [{"fens": fens_of(engine_mod, constants, o), "found": o["found"].cpu().tolist(),
+                      "device": str(o["found"].device)} for o in outs]
+    for i, o in enumerate(outs):
+        np.save(os.path.join(out_dir, f"stream{rank}_{i}.npy"), o["quadrangle"].cpu().numpy())
+    del outs
+
+    # (e) K1 on this card at the per-rank augmentation shapes
+    (imgs, masks), rows, b = rows_on_card(mesh, seg_batch(seed, 32, host=True), 1)
+    (squares, _), crow, cb = rows_on_card(mesh, cls_batch(seed, 256, host=True), 1)
+    k1.launches = 0
+    _, seg_calls = capture_k1(k1, lambda: augment_segmentation_batch(
+        seed + 1, imgs, masks, illum_gradient=True, rows=rows, global_batch=b))
+    _, cls_calls = capture_k1(k1, lambda: augment_classification_batch(
+        seed + 1, squares, cutout=True, dim=True, fade=True, rows=crow, global_batch=cb))
+    torch.cuda.synchronize(dev)
+    rec["augment_k1_launches"] = k1.launches
+    launches += k1.launches
+    errs.update(check_captured(k1, seg_calls, f"multicard segmentation cuda:{rank}"))
+    errs.update(check_captured(k1, cls_calls, f"multicard classifier cuda:{rank}"))
+    rec["k1_times"] = {
+        "segmentation": [time_k1(k1, *a, plain_iters=2) for a in seg_calls["warp_twopass"]],
+        "classifier": [time_k1(k1, *a, plain_iters=2) for a in cls_calls["warp_twopass"]],
+    }
+    rec["k1_err"] = max([e for case in errs.values() for e in case.values()]
+                        + [v["k1_err"] for by_seed in rec["steps"].values() for v in by_seed.values()])
+    rec["k1_launches"] = launches
+
+    # (f) the cards this process holds a context on, after a barrier and a
+    # timed call (both act on "the" device where a process is not bound)
+    torch.distributed.barrier()
+    profiling.wall_ms(lambda: None, iters=1)
+    rec["contexts"] = active_contexts()
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    hold_until_released(out_dir, rank)
+    mesh_lib.shutdown_distributed()
+    return 0
+
+
+def run_held_ranks(mode: str, world: int, argv_of, out_dir: str, timeout: int, extra_env: dict | None = None):
+    """Start ``world`` ranks of this script's ``mode``, wait until every
+    one has written ``ready<r>`` (a rank that exits first fails the phase),
+    read nvidia-smi while they hold their memory, release them and wait
+    for every one to exit 0.  Returns (outputs, nvidia-smi's apps, the
+    cards' UUIDs, the cards this process held contexts on meanwhile).
+    Every rank is stopped before this returns."""
+    env = dict(child_env(), **(extra_env or {}))
+    procs = []
+    logs = []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(out_dir, f"{mode}{r}.log"), "w+"))
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), f"--{mode}", *argv_of(r)],
+                                          env=env, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + timeout
+        while not all(os.path.exists(os.path.join(out_dir, f"ready{r}")) for r in range(world)):
+            bad = [(r, p.returncode) for r, p in enumerate(procs) if p.poll() is not None]
+            if bad or time.time() > deadline:
+                for lg in logs:
+                    lg.seek(0)
+                tails = "\n".join(f"--- rank {r}:\n{lg.read()[-3000:]}" for r, lg in enumerate(logs))
+                fail(f"{mode}: rank(s) {bad or 'all'} {'exited before ready' if bad else 'timed out'}:\n{tails}")
+            time.sleep(0.1)
+        apps, cards = smi_apps()
+        open(os.path.join(out_dir, "release"), "w").close()
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                fail(f"{mode}: rank {r} did not exit within 120 s of its release (teardown hang)")
+        outs = []
+        for lg in logs:
+            lg.seek(0)
+            outs.append(lg.read())
+        bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            fail(f"{mode}: rank(s) exited non-zero {bad}:\n" + "\n".join(o[-3000:] for o in outs))
+        return outs, apps, cards
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for lg in logs:
+            lg.close()
+
+
+def binding_problems(recs: list[dict], apps: dict) -> tuple[list, str]:
+    """What is wrong with where the ranks hold memory.  Each rank must hold
+    a context on its own card only, by libcuda's record of its own
+    process (``active_contexts``); where nvidia-smi lists the ranks' PIDs,
+    each must hold memory on its own card's bus only.  (A sealed machine's
+    nvidia-smi may list PIDs of another namespace: then it cannot say
+    which process holds what, and only its per-card totals are kept.)"""
+    problems = []
+    for r in recs:
+        own = int(r["device"].split(":")[1])
+        if r["contexts"] != [own]:
+            problems.append(f"rank {r['rank']} holds contexts on cards {r['contexts']}, expected [{own}]")
+    seen = {r["pid"] for r in recs} & set(apps)
+    if not seen:
+        return problems, f"nvidia-smi lists none of the ranks' PIDs (it shows {sorted(apps)}: another PID namespace)"
+    for r in recs:
+        held = sorted(b.lower() for b in apps.get(r["pid"], {}))
+        if held != [r["bus"].lower()]:
+            problems.append(f"rank {r['rank']} (pid {r['pid']}) holds memory on {held}, expected [{r['bus']}]")
+    return problems, f"nvidia-smi lists {len(seen)} of the ranks' PIDs"
+
+
+def launch_torchrun(cmd: list[str], env: dict, cwd: str, log_path: str, timeout: int) -> float:
+    """Run a torchrun command line in its own process group; fail unless it
+    exits 0 within ``timeout`` (the group is killed then).  Returns its
+    seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as lg:
+        proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=lg, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    if rc != 0:
+        with open(log_path) as lg:
+            tail = lg.read()[-4000:]
+        fail(f"multicard (c): {' '.join(cmd[:6])} ... {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def newest_checkpoint(store: str, project: str) -> str:
+    import glob
+
+    found = sorted(glob.glob(os.path.join(store, "projects", project, "runs", "*", "bulk", "checkpoint.npz")),
+                   key=os.path.getmtime)
+    if not found:
+        fail(f"multicard (c): no checkpoint of {project} in {store}")
+    return found[-1]
+
+
+def phase_multicard(k1, seed: int, root: str, world: int, card: str, res128=None) -> tuple[dict, dict]:
+    """Phase 16: ``world`` ranks over NCCL, one per card.  (a) at two seeds,
+    each trainer's full-width step against one process on the same global
+    batch (``parity_problems``), equal across ranks, and each rank's augmented rows
+    equal to the one-process augmentation's, bit for bit; (b) step ms a
+    rank and images/s over the ranks, strong (the shipping batch split)
+    and weak (the shipping batch on each rank), beside one process on one
+    card; (c) ``torch_train_distributed.sh`` and ``torchrun -m
+    …train_classifier`` through torchrun's environment, one epoch each,
+    rank 0's checkpoints served; (d) ``Engine(mesh=…)`` at B=128 and its
+    raw stream against one process; (e) K1 on every card against its plain
+    version; (f) each rank's memory on its own card only.  Returns K1's launches by
+    card and the numbers."""
+    import numpy as np
+
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import (board_frames, write_segmentation_dataset, write_squares_dataset,
+                                                 write_test_root)
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="multicard-", dir=root)
+    port = free_port()
+    _, apps, smi_cards = run_held_ranks("multicard-child", world,
+                                    lambda r: [str(r), str(world), str(port), out_dir, str(seed)], out_dir, 1500)
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(world)]
+    log(f"[multicard] {world} ranks done in {time.perf_counter() - t_phase:.1f} s; joined the group in "
+        f"{[round(r['join_s'], 1) for r in recs]} s; {card}")
+    problems = []
+    devices = [r["device"] for r in recs]
+    if [r["backend"] for r in recs] != ["nccl"] * world or devices != [f"cuda:{r}" for r in range(world)] \
+            or len(set(r["uuid"] for r in recs)) != world or [r["current_device"] for r in recs] != list(range(world)):
+        problems.append(f"backends {[r['backend'] for r in recs]}, devices {devices}, current devices "
+                        f"{[r['current_device'] for r in recs]}, uuids {[r['uuid'] for r in recs]}: expected nccl "
+                        f"on {world} distinct cards, each its rank's current device")
+
+    # (a) parity at two seeds, against one process on cuda:0 after the ranks
+    res: dict = {"world": world, "devices": devices, "steps": {}, "scaling": {}}
+    rows_equal = {}
+    for s in (seed, seed + 1):
+        ref_dir, rank_dir = tempfile.mkdtemp(prefix="one-", dir=root), os.path.join(out_dir, f"seed{s}")
+        one = parity_steps(k1, None, s, ref_dir, timed=5 if s == seed else 0, witness=True)
+        for name in (k for k in one if not k.endswith("float64")):
+            ranks = [r["steps"][str(s)][name] for r in recs]
+            par, bad = parity_problems(f"{world}-rank", name, ranks, one, rank_dir, ref_dir)
+            problems += [f"seed {s} {p}" for p in bad]
+            res["steps"][f"{name} seed {s}"] = dict(par, loss=ranks[0]["loss"])
+            if "step_ms" in one[name]:
+                res["steps"][f"{name} seed {s}"].update(step_ms=[r["step_ms"] for r in ranks],
+                                                        one_process_step_ms=one[name]["step_ms"])
+            log(f"[multicard] (a) seed {s}, {name} step, {world} NCCL ranks vs one process: {parity_line(par)}; equal "
+                f"across ranks: {not any('between the ranks' in p for p in bad)}")
+        for kind, b, n_t in (("unet", 32, 2), ("resnet18", 256, 1)):
+            for i in range(n_t):
+                want = np.load(os.path.join(ref_dir, f"{kind}_rank0_{i}.npy"))
+                for r in range(world):
+                    per, extra = divmod(b, world)
+                    start = r * per + min(r, extra)
+                    got = np.load(os.path.join(rank_dir, f"{kind}_rank{r}_{i}.npy"))
+                    same = got.shape == want[start : start + len(got)].shape and np.array_equal(
+                        got, want[start : start + len(got)])
+                    rows_equal[f"seed {s} {kind} tensor {i} rank {r}"] = same
+                    if not same:
+                        problems.append(f"(a) seed {s} {kind} tensor {i}: rank {r}'s augmented rows differ from the "
+                                        f"one-process augmentation's rows {start}:{start + len(got)}")
+        shutil.rmtree(ref_dir)
+    res["augmented_rows_bit_equal"] = all(rows_equal.values())
+    log(f"[multicard] (a) every rank's augmented rows equal the one-process augmentation's, bit for bit: "
+        f"{res['augmented_rows_bit_equal']} ({len(rows_equal)} tensors)")
+    one_timing = {kind: time_train_steps(k1, kind, seed) for kind in ("unet", "resnet18")}
+
+    # (b) scaling
+    for kind in ("unet", "resnet18"):
+        o = one_timing[kind]
+        for mode in ("strong", "weak"):
+            ts = [r["scaling"][f"{kind} {mode}"] for r in recs]
+            slowest = max(t["step_ms"] for t in ts)
+            row = {"step_ms": [t["step_ms"] for t in ts], "rows_a_rank": ts[0]["rows"], "global_batch": ts[0]["batch"],
+                   "images_per_s": ts[0]["batch"] * 1e3 / slowest, "tflops_per_s_all": sum(t["tflops_per_s"] for t in ts),
+                   "one_process_step_ms": o["step_ms"], "one_process_images_per_s": o["images_per_s"],
+                   "speedup": ts[0]["batch"] * 1e3 / slowest / o["images_per_s"]}
+            res["scaling"][f"{kind} {mode}"] = row
+            log(f"[multicard] (b) {kind} {mode}: {world} ranks x {row['rows_a_rank']} rows (global {row['global_batch']}) "
+                f"step {[round(x, 2) for x in row['step_ms']]} ms a rank -> {row['images_per_s']:.1f} images/s, "
+                f"{row['tflops_per_s_all']:.1f} TFLOP/s over the ranks; one process on one card, B={o['batch']}: "
+                f"{o['step_ms']:.2f} ms, {o['images_per_s']:.1f} images/s; speedup {row['speedup']:.2f}x; {card}")
+    res["one_process_timing"] = one_timing
+
+    # (d) inference
+    uniq = board_frames(seed + 1, 32)[0]
+    frames128 = np.concatenate([uniq] * 4)
+    cv = ChessVision(device="cuda")
+    if res128 is None:
+        cv.engine.process_batch(frames128)  # warm-up at this batch
+        res128 = cv.engine.process_batch(frames128)
+    rolled = {"fens": [str(f) for f in np.roll(np.asarray(res128.fens), 5)],
+              "found": np.roll(res128.board_found, 5).tolist(),
+              "quads": np.roll(res128.quadrangle, 5, axis=0)}
+    want_stream = [{"fens": list(res128.fens), "found": res128.board_found.tolist(), "quads": res128.quadrangle},
+                   rolled]
+    for r in recs:
+        quads = np.load(os.path.join(out_dir, f"quads{r['rank']}.npy"))
+        if not (r["fens"] == list(res128.fens) and r["found"] == res128.board_found.tolist()
+                and np.array_equal(quads, res128.quadrangle)):
+            problems.append(f"(d) rank {r['rank']}: Engine(mesh) differs from the one-process B=128 result (FENs equal "
+                            f"{sum(a == b for a, b in zip(r['fens'], res128.fens))}/128, max quad diff "
+                            f"{float(np.abs(quads - res128.quadrangle).max())})")
+        for i, (got, want) in enumerate(zip(r["stream"], want_stream)):
+            q = np.load(os.path.join(out_dir, f"stream{r['rank']}_{i}.npy"))
+            if not (got["fens"] == want["fens"] and got["found"] == want["found"] and np.array_equal(q, want["quads"])
+                    and got["device"] == r["device"]):
+                problems.append(f"(d) rank {r['rank']}: raw stream batch {i} on {got['device']} differs from the "
+                                f"one-process result")
+        if r["engine_k1_launches"] != 2 or r["stream_k1_launches"] != 4:
+            problems.append(f"(d) rank {r['rank']}: K1 launches {r['engine_k1_launches']} (engine, expected 2), "
+                            f"{r['stream_k1_launches']} (stream, expected 4)")
+    res["engine_ms"] = [r["engine_ms"] for r in recs]
+    log(f"[multicard] (d) Engine(mesh={world} NCCL ranks).process_batch B=128 ({recs[0]['engine_rows']} rows a rank): "
+        f"FENs, found and quads {'equal' if not any(p.startswith('(d)') for p in problems) else 'DIFFER from'} the "
+        f"one-process result on every rank, raw stream of 2 batches of 128 too; ms a call by rank "
+        f"{[[round(x, 1) for x in t] for t in res['engine_ms']]}; {card}")
+
+    # (e) K1 on every card
+    launches_by_card = {r["device"]: r["k1_launches"] for r in recs}
+    worst = max(r["k1_err"] for r in recs)
+    res["k1"] = {"launches_by_card": launches_by_card, "max_abs_err": worst, "times": {}}
+    for r in recs:
+        t = {name: {k: sum(c[k] for c in calls) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                           "two_kernel_floor_ms")} | {"shapes": [c["shape"] for c in calls]}
+             for name, calls in r["k1_times"].items()}
+        res["k1"]["times"][r["device"]] = t
+        log(f"[multicard] (e) K1 on {r['device']}: max |kernel - plain| {r['k1_err']}, launches {r['k1_launches']}; "
+            f"per-rank augmentation shapes: segmentation {t['segmentation']['shapes']} {t['segmentation']['ms']:.4f} ms "
+            f"(grid_sample {t['segmentation']['library_ms']:.4f}, bound {t['segmentation']['bound_ms']:.4f}), "
+            f"classifier {t['classifier']['shapes']} {t['classifier']['ms']:.4f} ms (grid_sample "
+            f"{t['classifier']['library_ms']:.4f}, bound {t['classifier']['bound_ms']:.4f}, plain "
+            f"{t['classifier']['plain_ms']:.3f})")
+    if not worst <= K1_TOL:
+        problems.append(f"(e) K1 differs from its plain version by {worst}")
+
+    # (f) binding
+    bind, how = binding_problems(recs, apps)
+    problems += [f"(f) {p}" for p in bind]
+    res["binding"] = {"contexts": {r["device"]: r["contexts"] for r in recs}, "how": how, "ok": not bind,
+                      "smi_apps": {str(k): v for k, v in apps.items()}, "smi_cards": smi_cards}
+    log(f"[multicard] (f) the cards each rank holds a context on (libcuda's record): "
+        f"{[r['contexts'] for r in recs]}; {how}; memory in use by card while the ranks were alive {smi_cards}; "
+        f"each rank on its own card only: {not bind}")
+
+    # (c) the launchers through torchrun's environment
+    here = os.path.dirname(os.path.abspath(__file__))
+    data_root = os.path.join(root, "multicard-data")
+    store = os.path.join(root, "multicard-store")
+    t0 = time.perf_counter()
+    write_segmentation_dataset(data_root, 96, seed)
+    write_squares_dataset(data_root, 80, 20, seed)
+    write_test_root(os.path.join(data_root, "test"), 16, seed)
+    env = dict(child_env(), CVTPU_DATA_ROOT=data_root, CVTPU_STORE_ROOT=store, NPROC=str(world),
+               TORCHRUN_ARGS=f"--master-port {free_port()}")
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env.get("PATH", "")
+    log(f"[multicard] (c) wrote the synthetic datasets in {time.perf_counter() - t0:.1f} s")
+    res["launchers"] = {}
+    for kind, cmd, project in (
+        ("unet", ["bash", os.path.join(here, "scripts", "bin", "torch_train_distributed.sh"), "--epochs", "1"],
+         "chessvision-segmentation"),
+        ("resnet18", ["torchrun", "--nproc-per-node", str(world), "--master-port", str(free_port()), "-m",
+                      "chessvision_tpu_torch.train.train_classifier", "--epochs", "1"], "chessvision-classification"),
+    ):
+        secs = launch_torchrun(cmd, env, here, os.path.join(root, f"torchrun-{kind}.log"), 600)
+        ckpt = newest_checkpoint(store, project)
+        res["launchers"][kind] = {"seconds": secs, "checkpoint": ckpt}
+        with open(os.path.join(root, f"torchrun-{kind}.log")) as lg:
+            text = lg.read()
+        log(f"[multicard] (c) {' '.join(os.path.basename(c) for c in cmd[:4])} ... --epochs 1: every process exited 0 "
+            f"in {secs:.1f} s over {world} ranks; rank 0's checkpoint {ckpt}; log tail: {text.strip()[-300:]!r}")
+    served = ChessVision(board_extractor_weights=res["launchers"]["unet"]["checkpoint"],
+                         classifier_weights=res["launchers"]["resnet18"]["checkpoint"], device="cuda")
+    out = served.engine.process_batch(frames128[:8])
+    if not (np.isfinite(out.probabilities).all() and np.isfinite(out.logits).all()):
+        problems.append("(c) rank 0's checkpoints do not serve finite outputs")
+    log(f"[multicard] (c) ChessVision on rank 0's checkpoints, B=8: finite outputs, found {int(out.board_found.sum())}/8")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[multicard] done in {res['seconds']:.1f} s; K1 launches by card {json.dumps(launches_by_card)}, "
+        f"max |kernel - plain| {worst}")
+    if problems:
+        fail("multicard: " + "; ".join(problems))
+    return launches_by_card, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1643,6 +2299,10 @@ def main() -> int:
     ap.add_argument("--load-client", nargs=2, metavar=("PORT", "BODIES"), help=argparse.SUPPRESS)
     ap.add_argument("--mesh-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
     ap.add_argument("--cli-trainers", nargs=4, metavar=("ROOT", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
+    ap.add_argument("--cards", type=int, default=None,
+                    help="run phase 16 over N cards (fails with fewer); default: every card, where there are two or more")
+    ap.add_argument("--only", choices=["multicard"], default=None, help="build the kernels, then run phase 16 alone")
+    ap.add_argument("--multicard-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.load_client:  # the server phase's own child process
         return load_client(int(args.load_client[0]), args.load_client[1])
@@ -1652,6 +2312,9 @@ def main() -> int:
     if args.cli_trainers:  # the parallel phase's world-size-1 trainers
         root, port, out, seed = args.cli_trainers
         return cli_trainers_child(root, int(port), out, int(seed))
+    if args.multicard_child:  # one rank of phase 16
+        r, w, port, out, seed = args.multicard_child
+        return multicard_child(int(r), int(w), int(port), out, int(seed))
 
     import torch
 
@@ -1679,11 +2342,45 @@ def main() -> int:
         smi = []
     card = smi[0] if smi else f"{dev_name}, power limit not read"
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; {card}")
+    n_cards = torch.cuda.device_count()
+    if args.cards is not None and not 1 <= args.cards <= n_cards:
+        print(f"chip_smoke: --cards {args.cards} needs that many cards; this machine shows {n_cards}", file=sys.stderr)
+        return 2
+    cards = args.cards or (n_cards if n_cards >= 2 else 0)
+    if args.only and not cards:
+        print("chip_smoke: --only multicard needs --cards N or a machine with two or more cards", file=sys.stderr)
+        return 2
 
     # -- 1. build ------------------------------------------------------------------
     t0 = time.perf_counter()
     names = cuda_build.build_all(verbose=True)
     log(f"[build] {names} in {time.perf_counter() - t0:.1f} s")
+
+    if args.only == "multicard":
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+            by_card, multicard = phase_multicard(k1, args.seed, root, cards, card)
+        log(f"[multicard] summary {json.dumps({k: v for k, v in multicard.items() if k != 'binding'})}")
+        t = multicard["k1"]["times"]["cuda:0"]["segmentation"]
+        kernels = [{
+            "name": "hat_resample",
+            "route": "cuda",
+            "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
+            "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
+            "launches": sum(by_card.values()),
+            "max_abs_err": multicard["k1"]["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+            "launches_by_card": by_card,
+            "multicard_shapes": multicard["k1"]["times"],
+        }]
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name, "count": n_cards}}))
+        return 0
 
     # -- 2. main path ----------------------------------------------------------------
     frames8, _ = board_frames(args.seed, 8)
@@ -1839,6 +2536,13 @@ def main() -> int:
         launches_data, data_res = phase_data(k1, args.seed, root, frames128)
         # -- 15. the launchers ---------------------------------------------------------------------
         launches_launchers, launchers = phase_launchers(k1, args.seed, root, card, frames8, agg12)
+        # -- 16. across cards ------------------------------------------------------------------------
+        by_card, multicard = {}, None
+        if cards:
+            by_card, multicard = phase_multicard(k1, args.seed, root, cards, card, res128)
+        else:
+            log(f"[multicard] phase 16 needs --cards N or a machine with two or more cards; this one shows "
+                f"{n_cards}: not run")
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
@@ -1863,8 +2567,9 @@ def main() -> int:
         "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
-                     + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers),
-        "max_abs_err": worst,
+                     + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
+                     + sum(by_card.values())),
+        "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],
         "bound_ms": k1_128["bound_ms"],
@@ -1873,11 +2578,13 @@ def main() -> int:
         "augment_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
                            for name, t in k1_augment.items()},
     }]
+    if multicard:
+        kernels[0].update(launches_by_card=by_card, multicard_shapes=multicard["k1"]["times"])
+        log(f"[multicard] summary {json.dumps({k: v for k, v in multicard.items() if k != 'binding'})}")
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name,
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name, "count": n_cards}}))
     return 0
 
 

@@ -18,11 +18,14 @@
 #
 #   NPROC=2 scripts/bin/torch_train_distributed.sh --device cpu --epochs 1
 #
-# NCCL refuses two ranks on one card: with fewer GPUs than processes the
-# ranks share a card and must run gloo, through host memory
-# (Mesh.comm_device).  Every process loads the same seeded data order and
-# uploads only its rows of each batch; rank 0 owns the run directory,
-# checkpoints, promotion and evaluation.
+# Each process makes cuda:LOCAL_RANK its current device before it joins
+# the group and leaves the group when it ends.  NCCL refuses two ranks on
+# one card (the mesh raises, naming both): with fewer GPUs than processes
+# run gloo, through host memory (Mesh.comm_device).  Every process loads
+# the same seeded data order, uploads and augments only its rows of each
+# batch; rank 0 owns the run directory, checkpoints, promotion and
+# evaluation.  A trainer started without torchrun on a machine with
+# several GPUs logs that it uses one and how to use them all.
 set -e
 exec torchrun --nproc-per-node "${NPROC:-1}" ${TORCHRUN_ARGS} \
   -m chessvision_tpu_torch.train.train_unet \

@@ -7,7 +7,10 @@ the CPU mesh, runs the train steps, ``process_batch``, the raw stream and
 ``run_device`` on a tensor, and writes ``OUT_DIR/rank{RANK}.npz``; ``python
 tests/_torch_mesh_worker.py trainers RANK WORLD PORT`` runs both trainers'
 command lines as that rank (``trainer_argv``) on the tiny datasets of
-tests/_trainer_parity.py.  It imports torch and the port only.
+tests/_trainer_parity.py; ``python tests/_torch_mesh_worker.py cls RANK
+WORLD INIT_FILE IN_DIR OUT_DIR`` runs the classifier step alone with plain
+SGD, and the same step without the collectives as a control, and writes
+``OUT_DIR/cls{RANK}.npz``.  It imports torch and the port only.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from chessvision_tpu_torch.train import steps  # noqa: E402
 
 SEG_LR = 1e-3
 CLS_LR = 1e-3
+# plain SGD at a unit rate for the four-rank case: a parameter moves by
+# minus its gradient, so the parameters after the step carry the gradient
+CLS_SGD_LR = 1.0
 STUB_QUAD = [[32, 28], [224, 30], [226, 228], [30, 226]]
 
 
@@ -77,12 +83,18 @@ def seg_step(mesh: mesh_lib.Mesh | None, state_dict: dict) -> dict[str, np.ndarr
     return _record("seg", state, m)
 
 
-def cls_step(mesh: mesh_lib.Mesh | None, state_dict: dict) -> dict[str, np.ndarray]:
-    """One Adam step of a ResNet18 (width 8) on this rank's rows."""
-    state = _state(models.resnet18(width=8), state_dict, steps.adam(CLS_LR))
+def cls_step(
+    mesh: mesh_lib.Mesh | None, state_dict: dict, tx: steps.Transform | None = None, collectives: bool = True,
+    prefix: str = "cls",
+) -> dict[str, np.ndarray]:
+    """One step of a ResNet18 (width 8) on this rank's rows (Adam unless
+    ``tx``); without ``collectives`` the step runs on those rows alone, as
+    a lost all-reduce would."""
+    state = _state(models.resnet18(width=8), state_dict, tx or steps.adam(CLS_LR))
     x, labels = cls_batch()
-    m = steps.make_cls_train_step(mesh)(state, mesh_lib.make_global_batch(mesh, x), mesh_lib.make_global_batch(mesh, labels))
-    return _record("cls", state, m)
+    step = steps.make_cls_train_step(mesh if collectives else None)
+    m = step(state, mesh_lib.make_global_batch(mesh, x), mesh_lib.make_global_batch(mesh, labels))
+    return _record(prefix, state, m)
 
 
 class FixedQuadExtractor(torch.nn.Module):
@@ -164,15 +176,30 @@ def run_trainers(rank: int, world: int, port: int) -> None:
 
     patch_datasets()
     cluster = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id", str(rank)]
+    # one group for both command lines: a ``main`` leaves only a group it joined
+    mesh_lib.initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
     train_unet.main(trainer_argv("unet", "mesh") + cluster)
     train_classifier.main(trainer_argv("resnet18", "mesh") + cluster)
-    torch.distributed.destroy_process_group()
+    mesh_lib.shutdown_distributed()
 
 
 def main(argv: list[str]) -> int:
     if argv[0] == "trainers":
         torch.set_num_threads(2)
         run_trainers(int(argv[1]), int(argv[2]), int(argv[3]))
+        return 0
+    if argv[0] == "cls":  # the classifier step alone, for the four-rank case
+        rank, world, init_file, in_dir, out_dir = int(argv[1]), int(argv[2]), argv[3], Path(argv[4]), Path(argv[5])
+        torch.set_num_threads(1)
+        torch.distributed.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world, rank=rank)
+        mesh = mesh_lib.create_mesh(device="cpu")
+        rec = {"rank": np.int64(mesh.rank), "size": np.int64(mesh.size)}
+        rec["slice"] = np.asarray(mesh_lib.process_local_batch_slice(len(cls_batch()[1]), mesh))
+        sd = torch.load(in_dir / "resnet.pt")
+        rec.update(cls_step(mesh, sd, steps.scale_by_learning_rate(CLS_SGD_LR)))
+        rec.update(cls_step(mesh, sd, steps.scale_by_learning_rate(CLS_SGD_LR), collectives=False, prefix="control"))
+        np.savez(out_dir / f"cls{rank}.npz", **rec)
+        mesh_lib.shutdown_distributed()
         return 0
     rank, world, init_file, in_dir, out_dir = int(argv[0]), int(argv[1]), argv[2], Path(argv[3]), Path(argv[4])
     torch.set_num_threads(2)

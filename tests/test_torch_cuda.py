@@ -324,3 +324,92 @@ def test_raw_stream_on_a_one_process_mesh_yields_the_mesh_free_tensors_on_the_ca
     for k in ref:
         assert isinstance(dev[k], torch.Tensor) and dev[k].is_cuda, k
         assert torch.equal(dev[k], ref[k]), k
+
+
+# -- several cards ---------------------------------------------------------------------
+
+
+def _need_cards(n: int) -> None:
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices and nvcc")
+
+
+def test_k1_on_every_card_past_the_first_equals_its_plain_version() -> None:
+    """Each launch lands on the card of its tensors (``hat_resample._run``'s
+    device guard), whatever card is current."""
+    _need_cards(2)
+    imgs0, minv0, out_h, out_w = _warp_case("rotated")
+    for d in range(1, torch.cuda.device_count()):
+        dev = torch.device("cuda", d)
+        imgs, minv = imgs0.to(dev), minv0.to(dev)
+        before = hat_resample.launches
+        got = hat_resample.warp_twopass(imgs, minv, out_h, out_w)
+        torch.cuda.synchronize(dev)
+        assert hat_resample.launches == before + 2 and got.device == dev
+        torch.testing.assert_close(got, hat_resample.warp_twopass_plain(imgs, minv, out_h, out_w), atol=0, rtol=0)
+        torch.testing.assert_close(got.cpu(), hat_resample.warp_twopass(imgs0, minv0, out_h, out_w).cpu(),
+                                   atol=0, rtol=0)
+
+
+_ENGINE_ON_CARD_1 = r"""
+import ctypes, json
+import torch
+
+cuda = ctypes.CDLL("libcuda.so.1")
+cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+cuda.cuDevicePrimaryCtxGetState.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint), ctypes.POINTER(ctypes.c_int)]
+assert cuda.cuInit(0) == 0
+
+
+def contexts():
+    active = []
+    for i in range(torch.cuda.device_count()):
+        dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        assert cuda.cuDeviceGet(ctypes.byref(dev), i) == 0
+        assert cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(on)) == 0
+        if on.value:
+            active.append(i)
+    return active
+
+
+stages = {}
+from chessvision_tpu_torch import profiling
+from chessvision_tpu_torch.core import ChessVision
+from chessvision_tpu_torch.ops import hat_resample
+from chessvision_tpu_torch.synthetic import board_frames
+
+frames = board_frames(0, 4)[0]
+x = torch.rand((2, 64, 64), device="cuda:1")
+stages["tensor"] = contexts()
+hat_resample.warp_twopass(x, torch.eye(3, device="cuda:1").expand(2, 3, 3).contiguous(), 64, 64)
+torch.cuda.synchronize(1)
+stages["k1"] = contexts()
+cv = ChessVision(device="cuda:1")
+stages["models"] = contexts()
+res = cv.engine.process_batch(frames)
+stages["process_batch"] = contexts()
+list(cv.engine.run_stream([frames[:2], frames[2:]], kind="raw"))
+stages["run_stream"] = contexts()
+profiling.wall_ms(cv.engine.process_batch, frames[:1], iters=1, device=cv.engine.device)
+stages["wall_ms"] = contexts()
+print(json.dumps({"stages": stages, "found": int(res.board_found.sum())}))
+"""
+
+
+def test_an_engine_on_the_second_card_leaves_nothing_on_the_first() -> None:
+    """A process that runs ``Engine`` on ``cuda:1`` (a batch, the raw
+    stream's pinned buffers, a synchronized timing) holds a context on
+    card 1 only, by libcuda's own record."""
+    _need_cards(2)
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _ENGINE_ON_CARD_1], capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(repo)}, cwd=repo)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert all(cards == [1] for cards in rec["stages"].values()), rec["stages"]
