@@ -31,10 +31,16 @@
 //    the positions of all its outputs, then starts all their tap loads
 //    together (the taps are branch-free: a tap outside the row reads
 //    element 0 with weight 0), then stores.
-//    - pass 1: a block owns P1_ROWS source rows of one board, brings them
+//    - pass 1: a block owns `rows` source rows of one board, brings them
 //      into shared memory with 16-byte loads, and each thread computes
 //      four neighbouring outputs of each row from shared memory and
-//      stores them as 16 bytes.
+//      stores them as 16 bytes.  The caller picks `rows` from the width
+//      (ops/hat_resample.py:pass1_plan): 8, 4, 2 or 1, the most whose
+//      floats fit a block's 227 KB, so a row of up to 58 112 floats is
+//      staged; a wider row takes the variant that reads its two taps
+//      from device memory through __ldg, as hat_resample_kernel does.
+//      Both read the same taps and sum them alike, so every width gives
+//      the same floats.
 //    - pass 2: threads run along u, the contiguous axis of both the
 //      intermediate and the output, and read the intermediate in place
 //      with row stride out_w: no transposed copy before or after.  A
@@ -65,7 +71,6 @@ constexpr int TILE_U = 32;          // threads along u in the tiled kernels
 constexpr int TILE_WARPS = 8;
 constexpr int TILE_PER_THREAD = 3;  // rows (or v) a thread walks in a tile
 constexpr int TILE_V = TILE_WARPS * TILE_PER_THREAD;
-constexpr int P1_ROWS = 8;          // source rows a pass-1 block owns
 constexpr int SHARED_DEFAULT = 48 * 1024;  // dynamic shared memory a kernel gets without asking
 
 // The two taps of one output at position p of a row of j elements: their
@@ -159,41 +164,51 @@ __global__ void hat_resample_kernel(const float* __restrict__ src,
 }
 
 // Pass 1: tmp[b, y, u] = hat resample of source row (b, y) at hx(u, y).
-// VEC: w and out_w are multiples of 4 and both arrays start on 16 bytes,
-// so rows load and outputs store as float4; otherwise one float at a time.
-template <bool VEC>
+// A block owns `rows` rows (the last block of a board fewer).  STAGED: the
+// rows sit in dynamic shared memory; otherwise each tap is read from
+// device memory.  VEC: w and out_w are multiples of 4 and both arrays
+// start on 16 bytes, so rows load and outputs store as float4; otherwise
+// one float at a time.
+template <bool VEC, bool STAGED>
 __global__ void warp_pass1_kernel(const float* __restrict__ imgs,
                                   const float* __restrict__ minv,
                                   float* __restrict__ tmp,
-                                  int h, int w, int out_w, int groups) {
+                                  int h, int w, int out_w, int rows, int groups) {
   extern __shared__ __align__(16) float rows_sm[];
   const int b = blockIdx.x / groups;
-  const int y0 = (blockIdx.x - b * groups) * P1_ROWS;
-  const int nrows = (h - y0 < P1_ROWS) ? h - y0 : P1_ROWS;
+  const int y0 = (blockIdx.x - b * groups) * rows;
+  const int nrows = (h - y0 < rows) ? h - y0 : rows;
   const float* src = imgs + ((int64_t)b * h + y0) * w;
-  const int count = nrows * w;
-  if (VEC) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* sm4 = reinterpret_cast<float4*>(rows_sm);
-    for (int i = threadIdx.x; i < count / 4; i += blockDim.x) sm4[i] = __ldg(src4 + i);
-  } else {
-    for (int i = threadIdx.x; i < count; i += blockDim.x) rows_sm[i] = __ldg(src + i);
+  if (STAGED) {
+    const int count = nrows * w;  // <= 58 112: it fits the block's shared memory
+    if (VEC) {
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+      float4* sm4 = reinterpret_cast<float4*>(rows_sm);
+      for (int i = threadIdx.x; i < count / 4; i += blockDim.x) sm4[i] = __ldg(src4 + i);
+    } else {
+      for (int i = threadIdx.x; i < count; i += blockDim.x) rows_sm[i] = __ldg(src + i);
+    }
   }
   const Homography m = load_homography(minv + (int64_t)b * 9);
-  __syncthreads();
+  if (STAGED) __syncthreads();
 
   float* dst = tmp + ((int64_t)b * h + y0) * out_w;
   for (int u0 = threadIdx.x * 4; u0 < out_w; u0 += blockDim.x * 4) {
     for (int r = 0; r < nrows; ++r) {
       const float ys = (float)(y0 + r);
-      const float* row = rows_sm + r * w;
       float hx[4], o[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) hx[k] = position_hx(m, (float)(u0 + k), ys);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const Tap t = tap_at(hx[k], w);
-        o[k] = tap_sum(t, row[t.i0], row[t.i1]);
+        if (STAGED) {
+          const float* row = rows_sm + r * w;
+          o[k] = tap_sum(t, row[t.i0], row[t.i1]);
+        } else {
+          const float* row = src + (int64_t)r * w;
+          o[k] = tap_sum(t, __ldg(row + t.i0), __ldg(row + t.i1));
+        }
       }
       float* d = dst + r * out_w + u0;
       if (VEC) {
@@ -262,22 +277,27 @@ extern "C" int hat_resample_launch(const void* src, const void* pos, void* out,
 }
 
 // Pass 1 alone: imgs (b, h, w) and minv (b, 3, 3) contiguous ->
-// tmp (b, h, out_w) contiguous.
+// tmp (b, h, out_w) contiguous.  A block owns `rows` source rows and
+// stages them in `smem` = rows * w * 4 bytes of shared memory, or, with
+// smem 0, reads its taps from device memory (the caller's plan,
+// ops/hat_resample.py:pass1_plan).
 extern "C" int warp_pass1_launch(const void* imgs, const void* minv, void* tmp,
-                                 int b, int h, int w, int out_w, void* stream) {
+                                 int b, int h, int w, int out_w, int rows, int smem, void* stream) {
   if (b == 0 || h == 0 || out_w == 0) return 0;
-  const int groups = (h + P1_ROWS - 1) / P1_ROWS;
+  if (rows < 1 || (smem != 0 && (int64_t)smem != (int64_t)rows * w * (int64_t)sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  const int groups = (h + rows - 1) / rows;
   const int warps = ((out_w + 3) / 4 + 31) / 32;
   const int threads = 32 * (warps < 8 ? warps : 8);
-  const int smem = P1_ROWS * w * (int)sizeof(float);
   const bool vec = w % 4 == 0 && out_w % 4 == 0 && (uintptr_t)imgs % 16 == 0 && (uintptr_t)tmp % 16 == 0;
-  const auto kernel = vec ? warp_pass1_kernel<true> : warp_pass1_kernel<false>;
+  const auto kernel = smem ? (vec ? warp_pass1_kernel<true, true> : warp_pass1_kernel<false, true>)
+                           : (vec ? warp_pass1_kernel<true, false> : warp_pass1_kernel<false, false>);
   if (smem > SHARED_DEFAULT) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<(unsigned int)((int64_t)b * groups), threads, smem, (cudaStream_t)stream>>>(
-      (const float*)imgs, (const float*)minv, (float*)tmp, h, w, out_w, groups);
+      (const float*)imgs, (const float*)minv, (float*)tmp, h, w, out_w, rows, groups);
   return (int)cudaGetLastError();
 }
 

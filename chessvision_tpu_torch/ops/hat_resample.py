@@ -11,7 +11,9 @@ the same function and the oracle.  The kernels are hand-written CUDA,
   kernel launches (``warp_pass1``, ``warp_pass2``) or the call raises.
   Each thread computes its own sample positions in registers, rounding
   every operation as the plain version's eager ops do, so no position
-  tensor is built or read; pass 1 stages source rows in shared memory;
+  tensor is built or read; pass 1 stages source rows in shared memory
+  (``pass1_plan``: 8, 4, 2 or 1 rows a block by the width, and rows too
+  wide for any of it read from device memory, so every width runs);
   pass 2 reads the intermediate's columns in place and writes the result
   in its final layout.  What moves through device memory is the images,
   the intermediate (written and read once) and the result.
@@ -41,8 +43,8 @@ launches = 0
 # bounded to ~2^26 floats (256 MB) instead of growing with the batch
 _PLAIN_ELEMS = 1 << 26
 
-# limits of csrc/hat_resample.cu: source rows a pass-1 block stages in
-# shared memory, the most shared memory a block can have, and gridDim.z
+# limits of csrc/hat_resample.cu: the most source rows a pass-1 block
+# owns, the most shared memory a block can have, and gridDim.z
 _P1_ROWS = 8
 _SHARED_BYTES = 232448
 _GRID_Z = 65535
@@ -171,21 +173,33 @@ def _check_warp(imgs: torch.Tensor, minv: torch.Tensor) -> None:
         raise ValueError(f"imgs on {imgs.device}, minv on {minv.device}")
 
 
+def pass1_plan(w: int) -> tuple[int, int]:
+    """Pass 1's launch plan for source rows of ``w`` floats: (rows a block
+    owns, shared-memory bytes it stages them in).  The most rows of 8, 4,
+    2 and 1 whose floats fit a block's shared memory; a row wider than all
+    of it (w > 58 112) takes the kernel that reads its taps from device
+    memory, (8, 0)."""
+    for rows in (_P1_ROWS, 4, 2, 1):
+        if rows * w * 4 <= _SHARED_BYTES:
+            return rows, rows * w * 4
+    return _P1_ROWS, 0
+
+
 def warp_pass1(imgs: torch.Tensor, minv: torch.Tensor, out_w: int) -> torch.Tensor:
     """Pass 1 on the card: (B, H, W) source rows resampled at hx →
-    (B, H, out_w).  One kernel launch."""
+    (B, H, out_w).  One kernel launch, for any width."""
     _check_warp(imgs, minv)
     if not (imgs.is_cuda and imgs.is_contiguous() and minv.is_contiguous()):
         raise ValueError("warp_twopass kernel takes contiguous CUDA tensors")
     b, h, w = imgs.shape
-    if h * max(w, out_w) >= 2**31 or b * -(-h // _P1_ROWS) >= 2**31:
+    rows, smem = pass1_plan(w)
+    if h * max(w, out_w) >= 2**31 or b * -(-h // rows) >= 2**31:
         raise ValueError(f"warp_twopass kernel: shape {(b, h, w, out_w)} over the int32 index limit")
-    if _P1_ROWS * w * 4 > _SHARED_BYTES:
-        raise ValueError(f"warp_twopass kernel: source rows of {w} floats do not fit its shared memory")
     tmp = torch.empty((b, h, out_w), dtype=torch.float32, device=imgs.device)
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    fn = _kernel("warp_pass1_launch", [ptr, ptr, ptr, i32, i32, i32, i32, ptr])
-    _run(fn, "warp_pass1", imgs.device, imgs.data_ptr(), minv.data_ptr(), tmp.data_ptr(), b, h, w, out_w)
+    fn = _kernel("warp_pass1_launch", [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr])
+    _run(fn, "warp_pass1", imgs.device, imgs.data_ptr(), minv.data_ptr(), tmp.data_ptr(),
+         b, h, w, out_w, rows, smem)
     return tmp
 
 

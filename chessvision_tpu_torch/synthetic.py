@@ -2,8 +2,10 @@
 
 A themed 8×8 checkerboard with disc-shaped pieces (white discs read as
 ``P``, black ones as ``p``), inside a dark frame, warped by a known
-homography into a cluttered background.  The frames need no cv2, so the
-port can be driven end to end anywhere; they are uint8 BGR like a
+homography into a cluttered background.  The square frames
+(``board_frames``) need no cv2, so the port can be driven end to end
+anywhere; ``photo_frames`` composes the board with cv2 into a canvas of
+any camera's size, landscape or portrait.  Both are uint8 BGR like a
 camera's.
 
 The dataset writers (these use cv2 to encode) lay seeded data out as the
@@ -139,6 +141,54 @@ def board_frames(seed: int, n: int, size: int = 512) -> tuple[np.ndarray, np.nda
     rng = np.random.default_rng(seed)
     pairs = [board_frame(rng, size) for _ in range(n)]
     return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def photo_frame(rng: np.random.Generator, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """One (h, w, 3) uint8 BGR frame at a camera's size, landscape or
+    portrait, and its board quad (4, 2) in frame pixels: a 512² board
+    texture warped (cv2, bilinear) into a canvas with a colour gradient
+    down its rows, flat clutter rectangles and ±3 levels of noise.  Built
+    in uint8 throughout, so a 48 MP frame costs its 146 MB and little
+    more."""
+    import cv2
+
+    side = 512
+    tex, _ = _board_texture(rng, side)
+    scale = rng.uniform(0.55, 0.85) * min(h, w)
+    half = scale / 2
+    cx = rng.uniform(half + 4, w - half - 4)
+    cy = rng.uniform(half + 4, h - half - 4)
+    corners = np.array([[-half, -half], [half, -half], [half, half], [-half, half]])
+    ang = rng.uniform(-0.12, 0.12)
+    rot = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+    quad = corners @ rot.T + rng.uniform(-0.03, 0.03, (4, 2)) * scale + [cx, cy]
+    quad = np.clip(quad, 1, [w - 2, h - 2])
+
+    base = rng.uniform(60, 220, 3)
+    grad = np.linspace(0, rng.uniform(-50, 50), h)
+    column = np.clip(np.floor(base[None] + grad[:, None] + 0.5), 0, 255).astype(np.uint8)
+    img = np.ascontiguousarray(np.broadcast_to(column[:, None], (h, w, 3)))
+    for _ in range(rng.integers(4, 12)):  # clutter: flat rectangles
+        y, x = rng.integers(0, h - 8), rng.integers(0, w - 8)
+        rh, rw = rng.integers(4, h // 4), rng.integers(4, w // 4)
+        img[y : y + rh, x : x + rw] = rng.uniform(0, 255, 3).astype(np.uint8)
+    src = np.array([[0, 0], [side, 0], [side, side], [0, side]], np.float64)
+    cv2.warpPerspective(tex.astype(np.uint8), _homography(src, quad), (w, h), dst=img,
+                        flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_TRANSPARENT)
+    noise = rng.integers(0, 7, (h, w, 3), dtype=np.uint8)
+    cv2.add(img, noise, dst=img)
+    cv2.subtract(img, (3.0, 3.0, 3.0, 0.0), dst=img)
+    return img, quad.astype(np.float32)
+
+
+def photo_frames(seed: int, n: int, h: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` camera-size frames (n, h, w, 3) uint8 and their quads (n, 4, 2)."""
+    rng = np.random.default_rng(seed)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    quads = np.empty((n, 4, 2), np.float32)
+    for i in range(n):
+        frames[i], quads[i] = photo_frame(rng, h, w)
+    return frames, quads
 
 
 def limit_chroma(frames: np.ndarray) -> np.ndarray:

@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-Phases 1–15 need one card; phase 16 runs over every card of a machine
-that shows two or more, or over ``--cards N`` (which fails with fewer);
-``--only multicard`` builds the kernels and runs phase 16 alone.
+Phases 1–15 and 17 need one card; phase 16 runs over every card of a
+machine that shows two or more, or over ``--cards N`` (which fails with
+fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
 (``--load-client``, ``--mesh-child``, ``--cli-trainers`` and
 ``--multicard-child`` are the script's own child processes.)
 
@@ -88,9 +88,22 @@ Phases (any failure exits non-zero without the final result line):
    every card against its plain version, timed at the per-rank
    augmentation shapes; (f) each rank holds a context and memory on its
    own card only (libcuda's record of each process, and nvidia-smi while
-   the ranks are alive).
+   the ranks are alive);
+17. photos: the main path on camera-size frames (``synthetic.photo_frames``:
+   12 MP landscape and portrait, 48 MP, and 3023×4031 for pass 1's scalar
+   branch; bfloat16, refine="arbitrate"): a 12 MP and a 48 MP JPEG posted
+   to the server twice each (the first pays its shapes' first call), then
+   ``comp`` and ``gray`` on the card against the CPU bit for bit,
+   ``process_image`` at each size against ``process_batch`` of its frame,
+   ``process_batch`` at B=4 of 12 MP (full and lite) and B=2 of 48 MP; 2 K1
+   launches a pipeline call, each call held against the plain version,
+   ``found``, FENs and boards against the plain-K1 path (phase 3's rule),
+   served FENs against ``process_batch``'s on the decoded frames; then
+   ``process_image`` p50 at 12 and 48 MP, ``process_batch`` B=4 at 12 MP,
+   the upload, the stages of a B=1 call, and K1 at each width, per pass
+   beside its bounds.
 
-Phases 7–10 and 13–16 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–17 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -262,15 +275,42 @@ def seeded_quads(seed: int):
     ]).astype(np.float32)
 
 
+def tap_sector_bytes(imgs, hx, vy) -> int:
+    """Bytes of the 32-byte sectors of ``imgs`` (B, H, W) that the two-pass
+    warp's boards depend on: for each board pixel the source rows of its
+    nonzero pass-2 taps at ``vy`` (B, out_w, out_h), and in each such row
+    the columns of its nonzero pass-1 taps at ``hx`` (B, H, out_w).  What a
+    warp that read only its taps would move; the run's own positions."""
+    import torch
+
+    b, h, w = imgs.shape
+    n = torch.arange(b, device=vy.device)[:, None, None].expand_as(vy)
+    u = torch.arange(vy.shape[1], device=vy.device)[None, :, None].expand_as(vy)
+    sectors = []
+    for dr in (0, 1):
+        r = torch.floor(vy) + dr
+        ok = (r >= 0) & (r < h) & (1.0 - torch.abs(vy - r) > 0)
+        nn, rr, uu = n[ok], r[ok].long(), u[ok]
+        p = hx[nn, rr, uu]
+        for dc in (0, 1):
+            c = torch.floor(p) + dc
+            okc = (c >= 0) & (c < w) & (1.0 - torch.abs(p - c) > 0)
+            flat = (nn[okc] * h + rr[okc]) * w + c[okc].long()
+            sectors.append(torch.unique((imgs.data_ptr() % 32 + 4 * flat) // 32))
+    return 32 * int(torch.unique(torch.cat(sectors)).numel())
+
+
 def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
     """Times (ms) on one warp's inputs: the two kernels together and each
     alone; the route with the positions in memory (positions built by torch
     ops, then ``hat_resample`` for each pass); the plain version; and the
     grid_sample yardstick given the positions, and with building them.
-    Bounds: the function's own bytes (images read, boards written) and the
-    two-kernel design's (the intermediate written and read as well), at the
-    data sheet's memory rate; ``copy_tb_per_s`` is what a device-to-device
-    copy of the images reaches (bytes read + written over its time)."""
+    Bounds, at the data sheet's memory rate: the function's own floor
+    (``bound_ms``: the source sectors its taps touch, ``tap_sector_bytes``,
+    the matrices read and the boards written) and the designs' (the whole
+    images read, as pass 1 stages them, and the intermediate written and
+    read as well); ``copy_tb_per_s`` is what a device-to-device copy of the
+    images reaches (bytes read + written over its time)."""
     import torch
 
     src_h = imgs.shape[1]
@@ -306,11 +346,14 @@ def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
     res["library_max_abs_diff"] = max_err(lib2().reshape(want.shape), want)
     scratch = torch.empty_like(imgs)
     res["copy_tb_per_s"] = 8 * imgs.numel() / cuda_ms(lambda: scratch.copy_(imgs), iters=20) / 1e9
-    function_bytes = 4 * (imgs.numel() + minv.numel() + imgs.shape[0] * out_h * out_w)
-    res["bound_ms"] = function_bytes / HBM_BYTES_PER_S * 1e3
-    res["two_kernel_floor_ms"] = (function_bytes + 8 * tmp.numel()) / HBM_BYTES_PER_S * 1e3
+    io_bytes = 4 * (minv.numel() + imgs.shape[0] * out_h * out_w)
+    res["tap_bytes"] = tap_sector_bytes(imgs, hx, vy)
+    res["source_share"] = res["tap_bytes"] / (4 * imgs.numel())
+    res["bound_ms"] = (res["tap_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
+    design_bytes = 4 * imgs.numel() + io_bytes
+    res["two_kernel_floor_ms"] = (design_bytes + 8 * tmp.numel()) / HBM_BYTES_PER_S * 1e3
     res["positions_route_floor_ms"] = (
-        function_bytes + 4 * (2 * tmp.numel() + hx.numel() + vy.numel())
+        design_bytes + 4 * (2 * tmp.numel() + hx.numel() + vy.numel())
     ) / HBM_BYTES_PER_S * 1e3
     torch.cuda.synchronize()
     return res
@@ -2292,6 +2335,229 @@ def phase_multicard(k1, seed: int, root: str, world: int, card: str, res128=None
     return launches_by_card, res
 
 
+# -- 17. camera-size photos ----------------------------------------------------------------------
+
+# (h, w) of the photos: 12 MP landscape and portrait, 48 MP (source rows past
+# the 7 264 floats whose 8 rows fit a pass-1 block's shared memory) and an
+# odd size (pass 1's scalar branch)
+PHOTO_SIZES = {"12MP": (3024, 4032), "12MP portrait": (4032, 3024), "48MP": (6048, 8064), "odd": (3023, 4031)}
+
+
+def plain_rule(got, plain) -> list[str]:
+    """Phase 3's rule between a result and the plain-K1 path's: the found
+    flags and FENs equal, the boards within 1 gray level on at most 0.1% of
+    pixels (the kernel is expected bit-exact, which gives 0).  What breaks it."""
+    import numpy as np
+
+    problems = []
+    if not (got.board_found == plain.board_found).all():
+        problems.append(f"found {got.board_found.tolist()} vs {plain.board_found.tolist()}")
+    if got.fens != plain.fens:
+        problems.append(f"FENs {got.fens} vs {plain.fens}")
+    diff = np.abs(got.board_image.astype(int) - plain.board_image.astype(int))
+    if diff.size and (diff.max() > 1 or np.mean(diff > 0) > 1e-3):
+        problems.append(f"boards: max {int(diff.max())}, share {float(np.mean(diff > 0))}")
+    return problems
+
+
+def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
+    """Phase 17: the main path on camera-size photos (``photo_frames``,
+    bfloat16, refine="arbitrate").  The server first, so that its posts pay
+    their shapes' first call (it warms 512² only): a 12 MP and a 48 MP JPEG
+    posted twice each.  Then ``comp`` and ``gray`` on the card against
+    ``preprocess_images`` on the CPU (bit for bit), ``process_image`` once
+    at each size against ``process_batch`` of the frame, ``process_batch``
+    at B=4 of 12 MP frames (full and lite) and at B=2 of 48 MP; every
+    pipeline call 2 K1 launches, its ``warp_twopass`` call held against the
+    plain version, and its result against the plain-K1 path's by phase 3's
+    rule; served FENs against ``process_batch``'s on the decoded frames.
+    Then the times: ``process_image`` p50 at 12 and 48 MP, ``process_batch``
+    B=4 at 12 MP, the upload, the stages of a B=1 call at 12 and 48 MP, K1
+    at each width.  Returns K1's launches over
+    the pipeline calls and the phase's record."""
+    import base64
+    import shutil
+    import threading
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch import profiling
+    from chessvision_tpu_torch.ops.resize import resize
+    from chessvision_tpu_torch.serve.server import serve
+    from chessvision_tpu_torch.synthetic import photo_frames
+    from chessvision_tpu_torch.utils import full_f32
+
+    t_phase = time.perf_counter()
+    engine = cv.engine
+    frames = {name: photo_frames(seed + 17 + i, 1, *hw)[0] for i, (name, hw) in enumerate(PHOTO_SIZES.items())}
+    batch12 = np.concatenate([frames["12MP"], photo_frames(seed + 30, 3, *PHOTO_SIZES["12MP"])[0]])
+    batch48 = np.concatenate([frames["48MP"], photo_frames(seed + 31, 1, *PHOTO_SIZES["48MP"])[0]])
+    rec = {"frames_s": time.perf_counter() - t_phase, "errors": {}}
+    launches = 0
+    k1_args = {}
+
+    def pipeline(label: str, fn):
+        """``fn()``, one pipeline call: K1 counted from 0 and captured; 2
+        launches, the captured call held against the plain version."""
+        nonlocal launches
+        k1.launches = 0
+        t = time.perf_counter()
+        out, calls = capture_k1(k1, fn)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if k1.launches != 2 or len(calls["warp_twopass"]) != 1:
+            fail(f"photos: {label}: expected 2 K1 launches in one warp_twopass call, got {k1.launches} in "
+                 f"{({k: len(v) for k, v in calls.items()})}")
+        launches += k1.launches
+        rec["errors"].update(check_captured(k1, calls, f"photos {label}"))
+        k1_args.setdefault(label, calls["warp_twopass"][0])
+        return out, ms
+
+    # the server, its shapes cold
+    jpegs = {name: cv2.imencode(".jpg", frames[name][0], [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+             for name in ("12MP", "48MP")}
+    upload_root = tempfile.mkdtemp(prefix="cv_uploads_")
+    server = serve(port=0, local=True, cv_model=cv, upload_root=upload_root, warmup=True)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    served = {}
+    try:
+        for name, body in jpegs.items():
+            payload = {"image": base64.b64encode(body).decode()}
+            for attempt in ("cold", "warm"):
+                (status, reply), ms = pipeline(f"server {name} {attempt}", lambda p=payload: http_json(port, "/cv_algo/", p))
+                served[name, attempt] = (status, reply, ms)
+    finally:
+        server.shutdown()
+        server.server_close()
+        shutil.rmtree(upload_root, ignore_errors=True)
+    for name, body in jpegs.items():
+        decoded = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        want = engine.process_batch(decoded[None], lite=True)
+        for attempt in ("cold", "warm"):
+            status, reply, _ = served[name, attempt]
+            ok = (status == 200 and reply["fen"] == want.fens[0]) if want.board_found[0] else (
+                status == 400 and reply["error"] == "No chessboard detected")
+            if not ok:
+                fail(f"photos: /cv_algo/ {name} {attempt}: {status} {reply}, process_batch on the decoded frame "
+                     f"gave found={bool(want.board_found[0])} {want.fens[0]!r}")
+    rec["server"] = {f"{name} {attempt}": {"status": v[0], "ms": v[2], "jpeg_mb": len(jpegs[name]) / 1e6}
+                     for (name, attempt), v in served.items()}
+    log(f"[photos] server: " + ", ".join(f"{k} {v['status']} in {v['ms']:.1f} ms ({v['jpeg_mb']:.1f} MB JPEG)"
+                                         for k, v in rec["server"].items()) + "; FENs equal process_batch's")
+
+    # the front half: comp and gray on the card against the CPU, on every
+    # photo of the phase and on sizes whose area boxes are whole but not a
+    # power of two (4:3 at 768×1024 and 1536×2048: 12 and 48 source pixels
+    # a box, so that about one value in twelve is an exact .5 before
+    # rounding, 768²: 9)
+    front = {**frames, "12MP B=4 rest": batch12[1:], "48MP B=2 rest": batch48[1:],
+             "768x1024": photo_frames(seed + 32, 4, 768, 1024)[0], "1536x2048": photo_frames(seed + 33, 2, 1536, 2048)[0],
+             "768x768": photo_frames(seed + 34, 2, 768, 768)[0]}
+    rec["front"] = {}
+    for name, f in front.items():
+        x = torch.from_numpy(f)
+        comp_cpu, gray_cpu = engine_mod.preprocess_images(x)
+        float_cpu = resize(x, (256, 256))
+        with torch.inference_mode(), full_f32():
+            comp_gpu, gray_gpu = (t.cpu() for t in engine_mod.preprocess_images(x.cuda()))
+            float_gpu = resize(x.cuda(), (256, 256)).cpu()
+        rec["front"][name] = {
+            "frames": len(f),
+            "comp_pixels_differ": int((comp_gpu != comp_cpu).sum()),
+            "gray_pixels_differ": int((gray_gpu != gray_cpu).sum()),
+            "resize_float_differ": int((float_gpu != float_cpu).sum()),
+            "resize_float_max_diff": max_err(float_gpu, float_cpu),
+        }
+    log(f"[photos] comp/gray on the card against the CPU: {json.dumps(rec['front'])}")
+    if any(v["comp_pixels_differ"] or v["gray_pixels_differ"] for v in rec["front"].values()):
+        fail(f"photos: comp or gray on the card differ from the CPU's: {json.dumps(rec['front'])}")
+
+    # process_image at each size, against process_batch and the plain K1
+    singles, cold = {}, {}
+    for name, f in frames.items():
+        singles[name], cold[name] = pipeline(f"process_image {name}", lambda f=f: cv.process_image(f[0]))
+        batch, _ = pipeline(f"process_batch {name} B=1", lambda f=f: engine.process_batch(f))
+        one = singles[name]
+        found = one.position is not None
+        if found != bool(batch.board_found[0]) or (one.position.fen if found else "") != batch.fens[0] or (
+                found and not (np.array_equal(one.board_extraction.board_image, batch.board_image[0])
+                               and np.array_equal(one.board_extraction.quadrangle, batch.quadrangle[0]))):
+            fail(f"photos: process_image {name} differs from process_batch of the frame")
+        problems = plain_rule(batch, with_plain_k1(k1, lambda f=f: engine.process_batch(f)))
+        if problems:
+            fail(f"photos: process_batch {name} differs from the plain-K1 path: {problems}")
+    rec["process_image"] = {name: {"found": one.position is not None, "fen": one.position.fen if one.position else "",
+                                   "quad": np.round(one.board_extraction.quadrangle, 1).tolist()
+                                   if one.board_extraction.quadrangle is not None else None,
+                                   "first_call_ms": cold[name]}
+                            for name, one in singles.items()}
+    log(f"[photos] process_image: {json.dumps(rec['process_image'])}")
+
+    # the batches
+    full12, _ = pipeline("process_batch 12MP B=4", lambda: engine.process_batch(batch12))
+    lite12, _ = pipeline("process_batch 12MP B=4 lite", lambda: engine.process_batch(batch12, lite=True))
+    full48, _ = pipeline("process_batch 48MP B=2", lambda: engine.process_batch(batch48))
+    if lite12.fens != full12.fens or not (lite12.board_found == full12.board_found).all():
+        fail("photos: lite FENs differ from full FENs at 12 MP B=4")
+    for label, got, frames_b in (("12MP B=4", full12, batch12), ("48MP B=2", full48, batch48)):
+        problems = plain_rule(got, with_plain_k1(k1, lambda fb=frames_b: engine.process_batch(fb)))
+        if problems:
+            fail(f"photos: process_batch {label} differs from the plain-K1 path: {problems}")
+    for label, got, name in (("12MP B=4", full12, "12MP"), ("48MP B=2", full48, "48MP")):
+        one = singles[name]
+        if (one.position is not None) != bool(got.board_found[0]) or (
+                one.position.fen if one.position else "") != got.fens[0]:
+            fail(f"photos: process_image {name} disagrees with process_batch {label} on its frame")
+    rec["batches"] = {"12MP B=4": {"found": full12.board_found.tolist(), "fens": full12.fens},
+                      "48MP B=2": {"found": full48.board_found.tolist(), "fens": full48.fens}}
+    log(f"[photos] batches: {json.dumps(rec['batches'])}; lite FENs equal full; found, FENs and boards equal the "
+        f"plain-K1 path's at every size and batch")
+
+    # times
+    rec["times"] = {
+        "process_image_12MP_ms": profiling.wall_ms(lambda: cv.process_image(frames["12MP"][0]), iters=7),
+        "process_image_48MP_ms": profiling.wall_ms(lambda: cv.process_image(frames["48MP"][0]), iters=5),
+        "process_batch_12MP_B4_ms": profiling.wall_ms(lambda: engine.process_batch(batch12), iters=3),
+        "upload_12MP_ms": profiling.wall_ms(lambda: torch.from_numpy(frames["12MP"]).cuda(), iters=5),
+        "upload_48MP_ms": profiling.wall_ms(lambda: torch.from_numpy(frames["48MP"]).cuda(), iters=5),
+    }
+    p50 = {k: percentile(v, 0.5) for k, v in rec["times"].items()}
+    rec["p50"] = p50
+    log(f"[photos] p50 ms: {json.dumps(p50)} (first calls at each size: "
+        f"{json.dumps({k: round(v, 1) for k, v in cold.items()})})")
+    rec["stages"] = {}
+    for name in ("12MP", "48MP"):
+        stages, total = profiling.stage_breakdown(engine, frames[name], iters=3)
+        rec["stages"][name] = {"total_ms": total, **stages}
+        log(f"[photos] stages of process_batch B=1 {name}, {total:.2f} ms (stages synchronized): "
+            + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    rec["k1"] = {}
+    for name in PHOTO_SIZES:
+        imgs, minv, out_h, out_w = k1_args[f"process_image {name}"]
+        t = time_k1(k1, imgs, minv, out_h, out_w, plain_iters=1)
+        rows, smem = k1.pass1_plan(imgs.shape[2])
+        mid = 4 * imgs.shape[0] * imgs.shape[1] * out_w
+        t["pass1_plan"] = [rows, smem]
+        # the design's bytes: pass 1 reads every source row whole and writes the intermediate
+        t["pass1_bound_ms"] = (4 * imgs.numel() + mid) / HBM_BYTES_PER_S * 1e3
+        t["pass2_bound_ms"] = (mid + 4 * imgs.shape[0] * out_h * out_w) / HBM_BYTES_PER_S * 1e3
+        rec["k1"][name] = t
+        log(f"[photos] K1 {name} {list(imgs.shape)} -> {out_h}x{out_w}, pass 1 plan {rows} rows / {smem} B: "
+            f"{t['ms']:.3f} ms (pass 1 {t['pass1_ms']:.3f} against the design's {t['pass1_bound_ms']:.3f}, pass 2 "
+            f"{t['pass2_ms']:.3f} against {t['pass2_bound_ms']:.3f}); function's floor {t['bound_ms']:.4f} (taps "
+            f"touch {t['tap_bytes'] / 1e6:.2f} MB, {100 * t['source_share']:.1f}% of the frame), "
+            f"grid_sample twice {t['library_ms']:.3f}, plain {t['plain_ms']:.1f}")
+    del k1_args
+    rec["max_abs_err"] = max(e for case in rec["errors"].values() for e in case.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[photos] K1 launches {launches}, max |kernel - plain| {rec['max_abs_err']}; phase {rec['seconds']:.1f} s")
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2543,7 +2809,10 @@ def main() -> int:
         else:
             log(f"[multicard] phase 16 needs --cards N or a machine with two or more cards; this one shows "
                 f"{n_cards}: not run")
-    worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"])
+    # -- 17. camera-size photos ---------------------------------------------------------------------
+    launches_photos, photos = phase_photos(k1, cv, args.seed)
+    worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
+                photos["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
@@ -2551,7 +2820,7 @@ def main() -> int:
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
-        f"launchers {launches_launchers}")
+        f"launchers {launches_launchers}, photos {launches_photos}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -2568,7 +2837,7 @@ def main() -> int:
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
                      + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
-                     + sum(by_card.values())),
+                     + launches_photos + sum(by_card.values())),
         "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],
@@ -2577,6 +2846,10 @@ def main() -> int:
         "library_ms": k1_128["library_ms"],
         "augment_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
                            for name, t in k1_augment.items()},
+        "photo_shapes": {name: {k: t[k] for k in ("ms", "pass1_ms", "pass2_ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "tap_bytes", "two_kernel_floor_ms", "pass1_bound_ms",
+                                                  "pass2_bound_ms", "pass1_plan", "shape")}
+                         for name, t in photos["k1"].items()},
     }]
     if multicard:
         kernels[0].update(launches_by_card=by_card, multicard_shapes=multicard["k1"]["times"])

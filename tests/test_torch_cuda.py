@@ -140,6 +140,54 @@ def test_warp_twopass_kernel_matches_plain(case) -> None:
     assert float(want.abs().max()) > 0
 
 
+# camera frames: K1's pass 1 gets source rows as wide as the photo (the warp
+# reads the full-resolution gray), past the 7 264 floats whose 8 rows fit a
+# block's shared memory; 16 320 stages 2 rows a block, 40 000 one, 60 000 none
+_CAMERA_WARPS = {  # name: (b, h, w)
+    "12mp_b2": (2, 3024, 4032),
+    "48mp": (1, 6048, 8064),
+    "12mp_odd": (1, 3023, 4031),
+    "200mp_rows": (1, 40, 16320),
+    "one_staged_row": (1, 12, 40000),
+    "unstaged_rows": (1, 12, 60000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CAMERA_WARPS))
+def test_warp_twopass_kernel_matches_plain_at_camera_widths(case) -> None:
+    _need_card()
+    b, h, w = _CAMERA_WARPS[case]
+    rng = np.random.default_rng(sorted(_CAMERA_WARPS).index(case))
+    imgs = torch.from_numpy(rng.integers(0, 256, (b, h, w)).astype(np.float32)).cuda()
+    quads = np.stack([_rotated(rng.uniform(-8, 8), 0.6 * min(h, w), 0.5 * w, 0.5 * h)] * b)
+    quads[:, :, 0] *= rng.uniform(0.7, 1.3)  # x scaled as the quad of a photo's squashed mask is
+    minv = _minv_from_quads(quads, 576, 576)
+    before = hat_resample.launches
+    got = hat_resample.warp_twopass(imgs, minv, 576, 576)
+    torch.cuda.synchronize()
+    assert hat_resample.launches == before + 2
+    want = hat_resample.warp_twopass_plain(imgs, minv, 576, 576)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert float(want.abs().max()) > 0
+
+
+def test_process_image_on_a_48mp_frame() -> None:
+    """The facade on an 8064×6048 frame: two K1 launches, a result with
+    the segmenter's 256² output, a 512² board where one was found."""
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import photo_frames
+
+    frame = photo_frames(0, 1, 6048, 8064)[0][0]
+    before = hat_resample.launches
+    res = ChessVision(device="cuda").process_image(frame)
+    assert hat_resample.launches == before + 2
+    assert res.board_extraction.probabilities.shape == (256, 256)
+    if res.position is not None:
+        assert res.board_extraction.board_image.shape == (512, 512)
+        assert len(res.position.fen.split("/")) == 8
+
+
 def test_warp_twopass_kernel_rejects_noncontiguous_images() -> None:
     _need_card()
     imgs = torch.rand((2, 64, 128), device="cuda")[:, :, ::2]
