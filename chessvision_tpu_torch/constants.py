@@ -2,9 +2,10 @@
 
 The port's own copy of the values the image→FEN path needs from
 ``chessvision_tpu/constants.py`` (same label order, sizes and square
-tables, so results compare one to one).  Weights resolve to the
-checkout's ``weights/`` directory; the datasets to ``CVTPU_DATA_ROOT`` when
-it is set, else the checkout's ``data/``, as in the JAX package.
+tables, so results compare one to one), and of its roots: ``REPO_ROOT`` is
+``CVTPU_ROOT`` when set, else the checkout, and the weights and the run
+store's default root follow it; the datasets resolve as in the JAX
+package (``data_root``).
 """
 
 from __future__ import annotations
@@ -12,14 +13,24 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-REPO_ROOT = Path(__file__).resolve().parent.parent
+REPO_ROOT = Path(os.getenv("CVTPU_ROOT", Path(__file__).resolve().parent.parent.as_posix()))
 
 
 def data_root() -> Path:
-    """The dataset root: ``CVTPU_DATA_ROOT``, else ``<checkout>/data``,
-    read when called."""
+    """The dataset root, read when called, in the JAX package's order:
+    ``CVTPU_DATA_ROOT``, else ``<root>/data`` if it exists, else the data
+    tree of the read-only reference checkout if that exists, else
+    ``<root>/data``."""
     env = os.getenv("CVTPU_DATA_ROOT")
-    return Path(env) if env else REPO_ROOT / "data"
+    if env:
+        return Path(env)
+    local = REPO_ROOT / "data"
+    if local.exists():
+        return local
+    reference = Path("/root/reference/data")
+    if reference.exists():
+        return reference
+    return local
 
 
 DATA_ROOT = data_root()

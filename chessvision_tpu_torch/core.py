@@ -115,7 +115,7 @@ class ChessVision:
         self._classifier_model_id = classifier_model_id
         self._dtype = dtype
         self._model_kwargs = model_kwargs or {}
-        self._refine_grid = refine_grid or "arbitrate"
+        self._refine_grid = refine_grid  # None: the engine reads CVTPU_REFINE
         self._engine: Engine | None = None
         if not lazy_load:
             _ = self.board_extractor, self.classifier

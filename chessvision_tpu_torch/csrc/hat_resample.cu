@@ -61,6 +61,10 @@
 // (1 - |pos - j|), and the products and the sum use __fmul_rn and
 // __fadd_rn so that no FMA contraction changes the last bit: the result
 // equals the plain version's bit for bit.
+//
+// Each launcher returns cudaGetLastError() of its launch, or NOTHING_LAUNCHED
+// (-1, no cudaError_t has it) when the shape holds no output element and no
+// kernel was launched.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +76,7 @@ constexpr int TILE_WARPS = 8;
 constexpr int TILE_PER_THREAD = 3;  // rows (or v) a thread walks in a tile
 constexpr int TILE_V = TILE_WARPS * TILE_PER_THREAD;
 constexpr int SHARED_DEFAULT = 48 * 1024;  // dynamic shared memory a kernel gets without asking
+constexpr int NOTHING_LAUNCHED = -1;
 
 // The two taps of one output at position p of a row of j elements: their
 // indices, hat weights, and whether each lies inside the row.  A tap
@@ -267,7 +272,7 @@ extern "C" int hat_resample_launch(const void* src, const void* pos, void* out,
                                    int64_t batch_stride, int64_t row_stride, int64_t elem_stride,
                                    void* stream) {
   const int64_t n = (int64_t)batches * rows;  // < 2^31, checked by the caller
-  if (n == 0 || u == 0) return 0;
+  if (n == 0 || u == 0) return NOTHING_LAUNCHED;
   const dim3 block(TILE_U, TILE_WARPS);
   const dim3 grid(ceil_div(n, TILE_V), ceil_div(u, TILE_U));
   hat_resample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
@@ -283,7 +288,7 @@ extern "C" int hat_resample_launch(const void* src, const void* pos, void* out,
 // ops/hat_resample.py:pass1_plan).
 extern "C" int warp_pass1_launch(const void* imgs, const void* minv, void* tmp,
                                  int b, int h, int w, int out_w, int rows, int smem, void* stream) {
-  if (b == 0 || h == 0 || out_w == 0) return 0;
+  if (b == 0 || h == 0 || out_w == 0) return NOTHING_LAUNCHED;
   if (rows < 1 || (smem != 0 && (int64_t)smem != (int64_t)rows * w * (int64_t)sizeof(float)))
     return (int)cudaErrorInvalidValue;
   const int groups = (h + rows - 1) / rows;
@@ -305,7 +310,7 @@ extern "C" int warp_pass1_launch(const void* imgs, const void* minv, void* tmp,
 // out (b, out_h, out_w) contiguous.
 extern "C" int warp_pass2_launch(const void* tmp, const void* minv, void* out,
                                  int b, int src_h, int out_h, int out_w, void* stream) {
-  if (b == 0 || out_h == 0 || out_w == 0) return 0;
+  if (b == 0 || out_h == 0 || out_w == 0) return NOTHING_LAUNCHED;
   const dim3 block(TILE_U, TILE_WARPS);
   const dim3 grid(ceil_div(out_w, TILE_U), ceil_div(out_h, TILE_V), (unsigned int)b);
   warp_pass2_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(

@@ -37,6 +37,7 @@ PyTorch runs eagerly, so there is no compiled program: the pipeline is
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
@@ -64,16 +65,19 @@ _DEST = np.array([[0.0, 0.0], [_BOARD_W, 0.0], [_BOARD_W, _BOARD_H], [0.0, _BOAR
 _ARBITRATE_TAU = 0.01
 
 # Boards per chunk of the arbitrate tail (correction resample + two
-# classifier passes + blend), which bounds the ResNet's live activations
-# (64 crops a board; bf16 conv outputs plus float32 BatchNorm and ReLU
-# outputs).  The JAX package chunks at 128 for a 16 GB TPU; an 80 GB H100
-# runs the whole pipeline on 512 boards (peak memory: chip_smoke.py
-# --profile, recorded in PERF.md).
+# classifier passes + blend) on each rank, which bounds the ResNet's live
+# activations (64 crops a board; bf16 conv outputs plus float32 BatchNorm
+# and ReLU outputs).  The JAX package chunks at 128 for a 16 GB TPU; an
+# 80 GB H100 runs the whole pipeline on 512 boards (peak memory:
+# chip_smoke.py --profile, recorded in PERF.md).  CVTPU_ARBITRATE_CHUNK
+# sets it for an Engine built without ``arbitrate_chunk``.
 _ARBITRATE_CHUNK = 512
 
 # margin (px) of the warp canvas in refine modes: the board warps into a
 # (512 + 2m)² canvas and the interior [m, m + 512)² is the nominal board
-_REFINE_MARGIN = 32
+# (0: the board itself).  CVTPU_REFINE_MARGIN sets it when the module is
+# imported, as in the JAX package.
+_REFINE_MARGIN = int(os.getenv("CVTPU_REFINE_MARGIN", "32"))
 
 # missing-king promotion floor of validate_labels_batch rule 3
 _MISSING_KING_FLOOR = 0.05
@@ -374,6 +378,8 @@ def _pipeline_core(
             quad_out = gridfix.refined_quadrangle(ms, corr)
             cls_probs = _classify_squares(classifier, classifier_outputs_probabilities, hflip(boards_sel))
         else:
+            # an empty batch is one chunk of no rows, so the outputs keep
+            # the shapes and dtypes a chunk gives
             parts = [
                 _arbitrate_chunk(
                     classifier,
@@ -383,7 +389,7 @@ def _pipeline_core(
                     ms[i : i + chunk],
                     margin,
                 )
-                for i in range(0, b, chunk)
+                for i in range(0, b, chunk) or (0,)
             ]
             cls_probs, boards_sel, quad1, use = (torch.cat(t, dim=0) for t in zip(*parts))
             quad_out = torch.where(use[:, None, None], quad1, quad_scaled)
@@ -563,9 +569,10 @@ class Engine:
     (B, 256, 256, 1) logits; ``classifier`` maps (N, 64, 64, 1) squares to
     (N, 13) logits (or probabilities).  Both are moved to ``device``
     ("cuda" by default; with no GPU, only an explicit "cpu" runs), or to
-    the mesh's device.  ``arbitrate_chunk`` counts boards of the whole
-    batch: on a mesh its default scales by the ranks, each of which chunks
-    its own rows."""
+    the mesh's device.  ``refine_grid`` None reads ``CVTPU_REFINE``
+    ("arbitrate" when unset).  ``arbitrate_chunk`` counts boards of the
+    whole batch: None gives each rank a chunk of ``CVTPU_ARBITRATE_CHUNK``
+    boards, or of 512 when unset, and each rank chunks its own rows."""
 
     def __init__(
         self,
@@ -573,20 +580,24 @@ class Engine:
         classifier: nn.Module,
         *,
         classifier_outputs_probabilities: bool = False,
-        refine_grid: str = "arbitrate",
+        refine_grid: str | None = None,
         arbitrate_chunk: int | None = None,
         device: str | torch.device = "cuda",
         mesh: mesh_lib.Mesh | None = None,
     ) -> None:
+        if refine_grid is None:
+            refine_grid = os.getenv("CVTPU_REFINE", "arbitrate")
         if refine_grid not in ("arbitrate", "detect", "off"):
             raise ValueError(f"unknown refine_grid mode {refine_grid!r}")
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self._refine = refine_grid
         n = mesh.size if mesh is not None else 1
-        # the chunk of the whole batch, scaled by the ranks by default; each
-        # rank chunks its own rows
-        self._arbitrate_chunk = max(1, (_ARBITRATE_CHUNK * n if arbitrate_chunk is None else arbitrate_chunk) // n)
+        if arbitrate_chunk is None:
+            env_chunk = os.getenv("CVTPU_ARBITRATE_CHUNK")
+            arbitrate_chunk = (int(env_chunk) if env_chunk else _ARBITRATE_CHUNK) * n
+        # each rank chunks its own rows
+        self._arbitrate_chunk = max(1, arbitrate_chunk // n)
         self._extractor = mesh_lib.replicate(mesh, extractor.to(self.device)).eval()
         self._classifier = mesh_lib.replicate(mesh, classifier.to(self.device)).eval()
         self._cls_probs_flag = classifier_outputs_probabilities

@@ -26,7 +26,8 @@ the same function and the oracle.  The kernels are hand-written CUDA,
   multiply-reduce of the JAX oracle).  Only CPU tensors take them in the
   wrappers; on the card they are what the kernels are compared with.
 - ``launches``: kernel launches so far (either entry), to show that a run
-  went through the kernels.
+  went through the kernels.  A call whose result has no element reaches
+  the launcher, which launches nothing and says so; it does not count.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ _PLAIN_ELEMS = 1 << 26
 _P1_ROWS = 8
 _SHARED_BYTES = 232448
 _GRID_Z = 65535
+# a launcher's return when the shape holds no output element
+_NOTHING_LAUNCHED = -1
 
 
 def hat_resample_plain(src: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -121,10 +124,12 @@ def _kernel(name: str, argtypes: list):
 
 def _run(fn, name: str, device: torch.device, *args) -> None:
     """Launch on the current stream of ``device``; raise unless the launch
-    was accepted; count it."""
+    was accepted; count it if the launcher launched."""
     global launches
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err == _NOTHING_LAUNCHED:
+        return
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches += 1

@@ -162,7 +162,7 @@ def find_quadrangle_batch(
     # seed: highest 9×9 box sum (SAME, zero padded) among foreground pixels
     box = torch.ones((1, 1, 9, 9), dtype=torch.float32, device=dev)
     smoothed = F.conv2d(probs[:, None], box, padding=4)[:, 0]
-    seed = torch.argmax(torch.where(mask, smoothed, -1.0).reshape(b, -1), dim=1)
+    seed = torch.argmax(torch.where(mask, smoothed, -1.0).reshape(b, h * w), dim=1)
 
     mask_small = mask.reshape(b, h // 2, 2, w // 2, 2).any(dim=4).any(dim=2)
     seed_y, seed_x = seed // w, seed % w

@@ -12,10 +12,10 @@ from __future__ import annotations
 import argparse
 import functools
 import http.server
+from pathlib import Path
 
-from chessvision_tpu_torch.constants import REPO_ROOT
-
-WEBROOT = REPO_ROOT / "chessvision_tpu" / "serve" / "webroot"
+# on the checkout beside this package, wherever CVTPU_ROOT points
+WEBROOT = Path(__file__).resolve().parents[2] / "chessvision_tpu" / "serve" / "webroot"
 
 
 def main() -> None:

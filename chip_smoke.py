@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-Phases 1–15 and 17 need one card; phase 16 runs over every card of a
+Phases 1–15, 17 and 18 need one card; phase 16 runs over every card of a
 machine that shows two or more, or over ``--cards N`` (which fails with
 fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
-(``--load-client``, ``--mesh-child``, ``--cli-trainers`` and
-``--multicard-child`` are the script's own child processes.)
+(``--load-client``, ``--mesh-child``, ``--cli-trainers``,
+``--multicard-child`` and ``--edges-child`` are the script's own child
+processes.)
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -101,9 +102,15 @@ Phases (any failure exits non-zero without the final result line):
    served FENs against ``process_batch``'s on the decoded frames; then
    ``process_image`` p50 at 12 and 48 MP, ``process_batch`` B=4 at 12 MP,
    the upload, the stages of a B=1 call, and K1 at each width, per pass
-   beside its bounds.
+   beside its bounds;
+18. edges: an empty batch through ``process_batch`` (full and lite),
+   ``run_device`` and the raw ``run_stream`` gives the JAX package's
+   fields, shapes and dtypes with no K1 launch; three child processes with
+   ``CVTPU_REFINE=detect``, ``CVTPU_REFINE_MARGIN=0`` (a 512² canvas) and
+   ``CVTPU_ROOT`` at a copy of ``weights/`` give the FENs of this process's
+   explicit ``refine_grid="detect"``, margin 0 and checkout weights.
 
-Phases 7–10 and 13–17 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–18 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -2558,6 +2565,196 @@ def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
     return launches, rec
 
 
+# the variables the port's engine and roots read; phase 18's children get
+# exactly one of them each
+EDGE_VARS = ("CVTPU_ROOT", "CVTPU_DATA_ROOT", "CVTPU_REFINE", "CVTPU_REFINE_MARGIN", "CVTPU_ARBITRATE_CHUNK")
+# what the JAX package returns at B=0 (its CPU run): field -> (shape, dtype)
+EMPTY_FULL = {
+    "logits": ((0, 256, 256), "float32"), "binary_mask": ((0, 256, 256), "uint8"),
+    "quadrangle": ((0, 4, 2), "float32"), "board_found": ((0,), "bool"),
+    "board_image": ((0, 512, 512), "uint8"), "probabilities": ((0, 64, 13), "float32"),
+}
+EMPTY_LITE = {**EMPTY_FULL, "logits": ((0, 0, 0), "float32"), "binary_mask": ((0, 0, 0), "uint8"),
+              "board_image": ((0, 0, 0), "uint8")}
+EMPTY_DEVICE = {"logits": ((0, 256, 256), "float32"), "quadrangle": ((0, 4, 2), "float32"),
+                "found": ((0,), "bool"), "board_image": ((0, 512, 512), "uint8"),
+                "probabilities": ((0, 64, 13), "float32")}
+
+
+def layout(fields: dict) -> dict:
+    """{name: (shape, dtype name)} of arrays or tensors."""
+    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in fields.items()}
+
+
+def edges_child(out_path: str, seed: int) -> int:
+    """One child of phase 18, in the environment its parent gave it:
+    ``ChessVision()`` as a user builds it, one ``process_batch`` of
+    ``board_frames(seed, 8)`` with K1 counted from 0 and captured, the
+    captured call held against the plain version; writes its record."""
+    import torch
+
+    from chessvision_tpu_torch import constants
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    frames8, _ = board_frames(seed, 8)
+    cv = ChessVision()
+    engine = cv.engine
+    k1.launches = 0
+    res, calls = capture_k1(k1, lambda: engine.process_batch(frames8))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    errs = check_captured(k1, calls, "edges child")
+    imgs, _, out_h, out_w = calls["warp_twopass"][0]
+    rec = {
+        "env": {v: os.environ[v] for v in EDGE_VARS if v in os.environ},
+        "repo_root": str(constants.REPO_ROOT),
+        "weights": [cv._board_extractor_weights, cv._classifier_weights],
+        "refine": engine._refine, "margin": engine_mod._REFINE_MARGIN, "canvas": [out_h, out_w],
+        "warp_batch": imgs.shape[0], "launches": launches,
+        "max_abs_err": max(e for case in errs.values() for e in case.values()),
+        "found": res.board_found.tolist(), "fens": res.fens,
+    }
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_edges(k1, cv, seed: int, root: str) -> tuple[int, dict]:
+    """Phase 18: the port's last parity repairs on the card.  (a) B=0
+    through ``process_batch`` (full and lite), ``run_device`` on the card
+    and the raw ``run_stream``: the JAX package's fields, shapes and dtypes,
+    ``warp_twopass`` called and K1 launched no time (its launchers' own
+    guard); (b) three children, started at once, each in an environment
+    with one variable set: ``CVTPU_REFINE=detect``, ``CVTPU_REFINE_MARGIN=0``
+    and ``CVTPU_ROOT`` at a directory holding a copy of ``weights/``; each
+    child's found flags and FENs equal this process's on the same frames
+    given ``refine_grid="detect"``, a 512² canvas (the module's margin set
+    to 0) and the checkout's weights; every pipeline call 2 K1 launches,
+    held against the plain version.  Returns K1's launches over the
+    pipeline calls (the children's included) and the phase's record."""
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import constants
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    t_phase = time.perf_counter()
+    engine = cv.engine
+    rec = {"errors": {}, "children": {}}
+
+    # (b) first, so that the children reach the card while (a) runs
+    weights_root = os.path.join(root, "relocated")
+    shutil.copytree(constants.WEIGHTS_DIR, os.path.join(weights_root, "weights"))
+    envs = {"detect": {"CVTPU_REFINE": "detect"}, "margin0": {"CVTPU_REFINE_MARGIN": "0"},
+            "root": {"CVTPU_ROOT": weights_root}}
+    base = {k: v for k, v in child_env().items() if k not in EDGE_VARS}
+    procs = {}
+    for name, extra in envs.items():
+        out = os.path.join(root, f"edges-{name}.json")
+        procs[name] = (out, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--edges-child", out, str(seed)], env={**base, **extra},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        # (a) an empty batch
+        frames0 = np.zeros((0, 512, 512, 3), np.uint8)
+        k1.launches = 0
+        full, calls0 = capture_k1(k1, lambda: engine.process_batch(frames0))
+        lite = engine.process_batch(frames0, lite=True)
+        dev = engine.run_device(torch.zeros((0, 512, 512, 3), dtype=torch.uint8, device=engine.device))
+        streamed = list(engine.run_stream([frames0], kind="raw"))
+        torch.cuda.synchronize()
+        launches0 = k1.launches
+        got = {
+            "process_batch": layout({k: getattr(full, k) for k in EMPTY_FULL}),
+            "process_batch lite": layout({k: getattr(lite, k) for k in EMPTY_LITE}),
+            "run_device": layout(dev),
+            "run_stream": [layout(o) for o in streamed],
+        }
+        want = {"process_batch": EMPTY_FULL, "process_batch lite": EMPTY_LITE, "run_device": EMPTY_DEVICE,
+                "run_stream": [EMPTY_DEVICE]}
+        problems = [k for k in want if got[k] != want[k]]
+        if full.fens or lite.fens or not all(t.is_cuda for t in [*dev.values(), *streamed[0].values()]):
+            problems.append("FENs of no frames, or outputs off the card")
+        warp0 = [tuple(a[0].shape) for a in calls0["warp_twopass"]]
+        log(f"[edges] B=0: {json.dumps(got)}; warp_twopass called on {warp0}; K1 launches {launches0}")
+        if problems or launches0 != 0 or warp0 != [(0, 512, 512)]:
+            fail(f"edges: B=0 gives {problems} against the JAX package's layout, K1 launches {launches0} "
+                 f"(expected 0), warp_twopass calls {warp0}")
+        rec["b0"] = {"layouts": got, "launches": launches0, "warp_calls": warp0}
+
+        # this process's side of (b): the same frames, the choice made explicitly
+        frames8, _ = board_frames(seed, 8)
+        launches = 0
+
+        def pipeline(label: str, fn):
+            nonlocal launches
+            k1.launches = 0
+            res, calls = capture_k1(k1, fn)
+            torch.cuda.synchronize()
+            if k1.launches != 2 or len(calls["warp_twopass"]) != 1:
+                fail(f"edges: {label}: expected 2 K1 launches, got {k1.launches}")
+            launches += k1.launches
+            rec["errors"].update(check_captured(k1, calls, f"edges {label}"))
+            return res, calls["warp_twopass"][0]
+
+        refs = {"root": pipeline("checkout", lambda: engine.process_batch(frames8))[0]}
+        refs["detect"] = pipeline("refine_grid=detect", lambda: ChessVision(refine_grid="detect").engine
+                                  .process_batch(frames8))[0]
+        margin, engine_mod._REFINE_MARGIN = engine_mod._REFINE_MARGIN, 0
+        try:
+            refs["margin0"], args = pipeline("margin 0", lambda: engine.process_batch(frames8))
+        finally:
+            engine_mod._REFINE_MARGIN = margin
+        if args[2:] != (512, 512):
+            fail(f"edges: margin 0 warped into {args[2:]}, not 512²")
+
+        outs = {}
+        for name, (_, proc) in procs.items():
+            outs[name] = proc.communicate(timeout=300)[0]
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    want_child = {"detect": ("detect", 32, [576, 576]), "margin0": ("arbitrate", 0, [512, 512]),
+                  "root": ("arbitrate", 32, [576, 576])}
+    for name, (out, proc) in procs.items():
+        if proc.returncode != 0:
+            fail(f"edges: child {name} exited {proc.returncode}:\n{outs[name][-4000:]}")
+        with open(out) as f:
+            child = json.load(f)
+        rec["children"][name] = child
+        ref = refs[name]
+        problems = []
+        if (child["refine"], child["margin"], child["canvas"]) != want_child[name]:
+            problems.append(f"mode {child['refine']}, margin {child['margin']}, canvas {child['canvas']}")
+        if child["found"] != ref.board_found.tolist() or child["fens"] != ref.fens:
+            problems.append(f"found/FENs {child['found']} {child['fens']} vs {ref.board_found.tolist()} {ref.fens}")
+        if child["launches"] != 2 or not child["max_abs_err"] <= K1_TOL:
+            problems.append(f"K1 launches {child['launches']}, max |kernel - plain| {child['max_abs_err']}")
+        if name == "root" and not (child["repo_root"] == weights_root and all(
+                w.startswith(weights_root + os.sep) and os.path.exists(w) for w in child["weights"])):
+            problems.append(f"root {child['repo_root']}, weights {child['weights']}")
+        log(f"[edges] child {json.dumps(child['env'])}: refine {child['refine']}, margin {child['margin']}, "
+            f"canvas {child['canvas']}, K1 launches {child['launches']}, max |kernel - plain| "
+            f"{child['max_abs_err']}, found {sum(child['found'])}/8, FENs equal this process's "
+            f"{child['fens'] == ref.fens}, weights {child['weights']}")
+        if problems:
+            fail(f"edges: child {name}: {problems}")
+        launches += child["launches"]
+    rec["max_abs_err"] = max([e for case in rec["errors"].values() for e in case.values()]
+                             + [c["max_abs_err"] for c in rec["children"].values()])
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[edges] K1 launches {launches} (B=0: {launches0}), max |kernel - plain| {rec['max_abs_err']}; "
+        f"phase {rec['seconds']:.1f} s")
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2569,6 +2766,7 @@ def main() -> int:
                     help="run phase 16 over N cards (fails with fewer); default: every card, where there are two or more")
     ap.add_argument("--only", choices=["multicard"], default=None, help="build the kernels, then run phase 16 alone")
     ap.add_argument("--multicard-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
+    ap.add_argument("--edges-child", nargs=2, metavar=("OUT", "SEED"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.load_client:  # the server phase's own child process
         return load_client(int(args.load_client[0]), args.load_client[1])
@@ -2581,6 +2779,8 @@ def main() -> int:
     if args.multicard_child:  # one rank of phase 16
         r, w, port, out, seed = args.multicard_child
         return multicard_child(int(r), int(w), int(port), out, int(seed))
+    if args.edges_child:  # one child of phase 18
+        return edges_child(args.edges_child[0], int(args.edges_child[1]))
 
     import torch
 
@@ -2811,8 +3011,11 @@ def main() -> int:
                 f"{n_cards}: not run")
     # -- 17. camera-size photos ---------------------------------------------------------------------
     launches_photos, photos = phase_photos(k1, cv, args.seed)
+    # -- 18. an empty batch and the environment ------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+        launches_edges, edges = phase_edges(k1, cv, args.seed, root)
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
-                photos["max_abs_err"])
+                photos["max_abs_err"], edges["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
@@ -2820,7 +3023,7 @@ def main() -> int:
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
-        f"launchers {launches_launchers}, photos {launches_photos}")
+        f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -2837,7 +3040,7 @@ def main() -> int:
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
                      + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
-                     + launches_photos + sum(by_card.values())),
+                     + launches_photos + launches_edges + sum(by_card.values())),
         "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],

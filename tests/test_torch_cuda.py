@@ -374,6 +374,73 @@ def test_raw_stream_on_a_one_process_mesh_yields_the_mesh_free_tensors_on_the_ca
         assert torch.equal(dev[k], ref[k]), k
 
 
+def test_process_batch_of_no_frames_launches_no_k1_kernel() -> None:
+    """At B=0 the engine reaches ``warp_twopass``, whose launchers have no
+    element to compute and launch nothing: no K1 launch is counted, and
+    every entry returns the JAX package's empty fields on the card."""
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+
+    engine = ChessVision(device="cuda").engine
+    frames0 = np.zeros((0, 512, 512, 3), np.uint8)
+    before = hat_resample.launches
+    full = engine.process_batch(frames0)
+    lite = engine.process_batch(frames0, lite=True)
+    dev = engine.run_device(torch.zeros((0, 512, 512, 3), dtype=torch.uint8, device="cuda"))
+    (streamed,) = list(engine.run_stream([frames0], kind="raw"))
+    torch.cuda.synchronize()
+    assert hat_resample.launches == before
+    assert full.board_image.shape == (0, 512, 512) and full.board_image.dtype == np.uint8
+    assert full.logits.shape == (0, 256, 256) and full.probabilities.shape == (0, 64, 13)
+    assert lite.board_image.shape == lite.logits.shape == (0, 0, 0) and lite.fens == full.fens == []
+    for out in (dev, streamed):
+        assert out["board_image"].is_cuda and out["board_image"].shape == (0, 512, 512)
+        assert out["found"].dtype == torch.bool and out["quadrangle"].shape == (0, 4, 2)
+
+
+_MARGIN_ZERO = r"""
+import json
+import torch
+from chessvision_tpu_torch import engine as engine_mod
+from chessvision_tpu_torch.core import ChessVision
+from chessvision_tpu_torch.ops import hat_resample
+from chessvision_tpu_torch.synthetic import board_frames
+
+calls = []
+kernel = hat_resample.warp_twopass
+hat_resample.warp_twopass = lambda *a: calls.append(a) or kernel(*a)
+frames = board_frames(0, 4)[0]
+res = ChessVision(device="cuda").engine.process_batch(frames)
+torch.cuda.synchronize()
+launches = hat_resample.launches
+(args,) = calls
+err = float((kernel(*args) - hat_resample.warp_twopass_plain(*args)).abs().max())
+print(json.dumps({"margin": engine_mod._REFINE_MARGIN, "canvas": list(args[2:]), "launches": launches,
+                  "err": err, "found": int(res.board_found.sum()), "board": list(res.board_image.shape)}))
+"""
+
+
+def test_process_batch_at_refine_margin_zero_warps_into_the_board() -> None:
+    """``CVTPU_REFINE_MARGIN=0`` (read at import, so in a child process):
+    the warp goes straight into the 512² board, two K1 launches, the kernel
+    equal to its plain version on the call's inputs."""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _MARGIN_ZERO], capture_output=True, text=True, timeout=600, cwd=repo,
+                         env={**os.environ, "PYTHONPATH": str(repo), "CVTPU_REFINE_MARGIN": "0"})
+    assert out.returncode == 0, out.stderr[-4000:]
+    rec = json.loads(out.stdout.splitlines()[-1])
+    assert rec["margin"] == 0 and rec["canvas"] == [512, 512]
+    assert rec["launches"] == 2 and rec["err"] == 0.0
+    assert rec["board"] == [4, 512, 512] and rec["found"] > 0
+
+
 # -- several cards ---------------------------------------------------------------------
 
 
