@@ -1,0 +1,220 @@
+"""Microbenchmarks of the hot sub-stages on the card, the counterpart of
+``scripts/microbench.py``.
+
+``--which quad``: the quadrangle's sub-stages (``ops/quad.py``) on a
+batch of 128 soft 256² board masks: a 9×9 box sum of the probabilities in
+one 2-D pass and as two 1-D passes, the half-resolution flood fill from the
+centre seed, and the hull support points with the 60-step decimation.
+
+``--which warp``: K1 on the main path's shapes (128 gray 512² frames of
+seeded synthetic boards, warped by their quads into the 576² canvas) in
+the port's three formulations of the same function: ``warp_twopass`` (the
+CUDA kernels), its plain version, and ``F.grid_sample`` once for each pass
+with the positions given; the kernel's error against the plain version,
+and the function's floor in bytes (``flops.tap_sector_bytes`` at the
+card's memory rate).  K1 runs only on the card: ``--which warp`` (and
+``all``) raises with ``--device cpu`` rather than time the plain version
+under K1's name.
+
+    python -m chessvision_tpu_torch.tools.microbench [--which warp|quad|all] [--iters 5] [--device cpu]
+
+Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from chessvision_tpu_torch.engine import _DEST
+from chessvision_tpu_torch.ops import hat_resample as k1
+from chessvision_tpu_torch.ops.color import bgr_to_gray
+from chessvision_tpu_torch.ops.quad import connected_component, decimate_to_quad, support_points
+from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
+from chessvision_tpu_torch.profiling import wall_ms
+from chessvision_tpu_torch.synthetic import board_frames
+from chessvision_tpu_torch.tools import card, flops
+from chessvision_tpu_torch.utils import full_f32, resolve_device
+
+QUAD_BATCH, MASK_SIZE = 128, 256
+WARP_BATCH, CANVAS, MARGIN = 128, 576, 32
+
+
+# ---------------- quadrangle sub-stages ----------------
+def quad_inputs(bsz: int, device: torch.device) -> dict[str, torch.Tensor]:
+    """A soft board blob (B, 256, 256) and its mask at 0.5."""
+    line = torch.linspace(-1.0, 1.0, MASK_SIZE, device=device)
+    probs = torch.sigmoid(8.0 * (0.6 - torch.maximum(line.abs()[:, None], line.abs()[None, :])))
+    probs = probs.expand(bsz, MASK_SIZE, MASK_SIZE)
+    return {"probs": probs, "mask": probs > 0.5}
+
+
+def _box_sum(p: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """Sum over a kh×kw window centred on each pixel, zeros outside."""
+    ones = torch.ones((1, 1, kh, kw), dtype=p.dtype, device=p.device)
+    return F.conv2d(p[:, None], ones, padding=(kh // 2, kw // 2))[:, 0]
+
+
+def quad_functions() -> dict[str, tuple[Callable[[torch.Tensor], Any], str]]:
+    """Each sub-stage and the name of its ``quad_inputs``."""
+
+    def smooth_9x9_2d(p: torch.Tensor) -> torch.Tensor:
+        return _box_sum(p, 9, 9)
+
+    def smooth_9x9_sep(p: torch.Tensor) -> torch.Tensor:
+        return _box_sum(_box_sum(p, 9, 1), 1, 9)
+
+    def flood_halfres(m: torch.Tensor) -> torch.Tensor:
+        b, h, w = m.shape
+        half = m.reshape(b, h // 2, 2, w // 2, 2).any(dim=4).any(dim=2)
+        seeds = torch.full((b,), (h // 4) * (w // 2) + w // 4, dtype=torch.int64, device=m.device)
+        return connected_component(half, seeds)
+
+    def support_decimate(m: torch.Tensor) -> torch.Tensor:
+        return decimate_to_quad(support_points(m))
+
+    return {
+        "smooth_9x9_2d": (smooth_9x9_2d, "probs"),
+        "smooth_9x9_sep": (smooth_9x9_sep, "probs"),
+        "flood_halfres": (flood_halfres, "mask"),
+        "support_decimate": (support_decimate, "mask"),
+    }
+
+
+def bench_quad(iters: int, device: torch.device, bsz: int = QUAD_BATCH) -> dict[str, float]:
+    """Median ms of each quadrangle sub-stage, each call synchronized."""
+    inputs = quad_inputs(bsz, device)
+    res = {}
+    with torch.inference_mode(), full_f32():
+        for name, (fn, key) in quad_functions().items():
+            res[name] = round(float(np.median(wall_ms(fn, inputs[key], iters=iters, warmup=1, device=device))), 2)
+            print(f"[bench] {name}: {res[name]} ms", file=sys.stderr, flush=True)
+    return res
+
+
+# ---------------- K1, the warp ----------------
+def event_ms(fn: Callable[[], Any], iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA
+    events after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grid_sample_rows(src: torch.Tensor, pos: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """One PyTorch call computing the hat resample of (..., J) rows at
+    (..., U) positions: grid_sample over (N, 1, 1, J) rows with
+    align_corners=True, zero padding, y = 0 (PyTorch's own CUDA sampler:
+    cuDNN's refuses batches this large)."""
+    j = src.shape[-1]
+    inp = src.reshape(-1, 1, 1, j)
+    x = pos.reshape(-1, 1, pos.shape[-1], 1) * (2.0 / (j - 1)) - 1.0
+    grid = torch.cat([x, torch.zeros_like(x)], dim=-1)
+
+    def call() -> torch.Tensor:
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    return call
+
+
+def warp_inputs(bsz: int, seed: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's main-path inputs: gray float32 frames (B, 512, 512) of seeded
+    synthetic boards (32 distinct, tiled) and the inverse homographies
+    (B, 3, 3) that take each board's quad into the 576² canvas."""
+    frames, quads = board_frames(seed, min(bsz, 32))
+    reps = -(-bsz // len(frames))
+    frames = torch.from_numpy(np.concatenate([frames] * reps)[:bsz]).to(device)
+    quads = torch.from_numpy(np.concatenate([quads] * reps)[:bsz]).float().to(device)
+    dest = torch.from_numpy(_DEST).to(device) + float(MARGIN)
+    with full_f32():
+        minv = invert_homography(get_perspective_transform(quads, dest.expand(bsz, 4, 2))).contiguous()
+    return bgr_to_gray(frames, exact_u8=True).float(), minv
+
+
+def warp_floor(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int,
+               bytes_per_s: float) -> tuple[int, float]:
+    """The warp's floor: the 32-byte source sectors its taps touch
+    (``flops.tap_sector_bytes``), the matrices read and the boards written,
+    in bytes of taps and in ms at ``bytes_per_s``."""
+    hx, vy = k1.twopass_positions(minv, imgs.shape[1], out_h, out_w)
+    tap_bytes = flops.tap_sector_bytes(imgs, hx, vy)
+    io_bytes = 4 * (minv.numel() + imgs.shape[0] * out_h * out_w)
+    return tap_bytes, (tap_bytes + io_bytes) / bytes_per_s * 1e3
+
+
+def warp_times(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int, plain_iters: int,
+               bytes_per_s: float) -> dict[str, Any]:
+    """K1 (``warp_twopass``), its plain version and ``grid_sample`` once for
+    each pass with the positions given, timed (ms) on one warp's inputs;
+    grid_sample's largest difference from the plain version; the floor
+    (``warp_floor``)."""
+    b, src_h = imgs.shape[:2]
+    hx, vy = k1.twopass_positions(minv, src_h, out_h, out_w)
+    lib1 = grid_sample_rows(imgs, hx)
+    lib2 = grid_sample_rows(k1.warp_pass1(imgs, minv, out_w).transpose(1, 2), vy)
+    want = k1.warp_twopass_plain(imgs, minv, out_h, out_w)
+    tap_bytes, bound_ms = warp_floor(imgs, minv, out_h, out_w, bytes_per_s)
+    return {
+        "ms": event_ms(lambda: k1.warp_twopass(imgs, minv, out_h, out_w), iters=20),
+        "plain_ms": event_ms(lambda: k1.warp_twopass_plain(imgs, minv, out_h, out_w), plain_iters, 1),
+        "library_ms": event_ms(lib1, iters=20) + event_ms(lib2, iters=20),
+        "library_max_abs_diff": float((lib2().reshape(b, out_w, out_h).transpose(1, 2) - want).abs().max()),
+        "tap_bytes": tap_bytes,
+        "bound_ms": bound_ms,
+    }
+
+
+def bench_warp(iters: int, device: torch.device, seed: int = 0, bsz: int = WARP_BATCH) -> dict[str, Any]:
+    """K1's time, its plain version's and grid_sample's at the main path's
+    shapes (``warp_times``), its error against the plain version, and its
+    floor."""
+    if device.type != "cuda":
+        raise ValueError("microbench --which warp times K1, whose kernels run only on the card; "
+                         "the CPU would time the plain version under K1's name")
+    imgs, minv = warp_inputs(bsz, seed, device)
+    err = (k1.warp_twopass(imgs, minv, CANVAS, CANVAS) - k1.warp_twopass_plain(imgs, minv, CANVAS, CANVAS)).abs().max()
+    t = warp_times(imgs, minv, CANVAS, CANVAS, iters, card.peaks(card.card_fields(device)["device"])["bytes_per_s"])
+    return {
+        "warp_shape": [list(imgs.shape), CANVAS, CANVAS],
+        "warp_twopass_ms": t["ms"],
+        "warp_twopass_plain_ms": t["plain_ms"],
+        "grid_sample_twice_ms": t["library_ms"],
+        "warp_max_abs_err": float(err),
+        "grid_sample_max_abs_diff": t["library_max_abs_diff"],
+        "warp_tap_bytes": t["tap_bytes"],
+        "warp_bound_ms": t["bound_ms"],
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description="Microbenchmarks of the PyTorch port's quad sub-stages and K1")
+    ap.add_argument("--which", choices=["warp", "quad", "all"], default="all")
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (quad only)")
+    a = ap.parse_args(argv)
+    dev = resolve_device(a.device)
+    out: dict[str, Any] = {"backend": dev.type, **card.card_fields(dev)}
+    if a.which in ("warp", "all"):
+        out.update(bench_warp(a.iters, dev))
+    if a.which in ("quad", "all"):
+        out.update(bench_quad(a.iters, dev))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

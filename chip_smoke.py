@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-Phases 1–15, 17 and 18 need one card; phase 16 runs over every card of a
+Phases 1–15 and 17–19 need one card; phase 16 runs over every card of a
 machine that shows two or more, or over ``--cards N`` (which fails with
 fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
 (``--load-client``, ``--mesh-child``, ``--cli-trainers``,
@@ -108,9 +108,17 @@ Phases (any failure exits non-zero without the final result line):
    fields, shapes and dtypes with no K1 launch; three child processes with
    ``CVTPU_REFINE=detect``, ``CVTPU_REFINE_MARGIN=0`` (a 512² canvas) and
    ``CVTPU_ROOT`` at a copy of ``weights/`` give the FENs of this process's
-   explicit ``refine_grid="detect"``, margin 0 and checkout weights.
+   explicit ``refine_grid="detect"``, margin 0 and checkout weights;
+19. measure: the port's measuring tools (``chessvision_tpu_torch/tools``),
+   each one's ``main()`` in this process at its defaults: ``bench_torch.py``,
+   ``profile_stages``, ``bench_training``, ``sweep_arbitrate_chunk`` at chunks
+   128 and 512 (B=512), ``microbench --which all`` and ``mfu_accounting`` (on
+   the times those printed); each prints its JSON line(s) with its keys
+   and the card's name and power limit, the bench's last FENs equal
+   ``process_batch``'s, the sweep's are equal across chunks, and K1 runs
+   inside the bench, the stages, the trainers and the microbenchmark.
 
-Phases 7–10 and 13–18 also record what their path hands K1 (a streamed batch of each
+Phases 7–10 and 13–19 also record what their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -147,37 +155,25 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA
-    events after a warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def percentile(xs: list[float], q: float) -> float:
     s = sorted(xs)
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def capture_k1(k1, fn):
-    """Run ``fn`` with both K1 entries recording the arguments they are given."""
+def capture_k1(k1, fn, seen: set | None = None):
+    """Run ``fn`` with both K1 entries recording the arguments they are
+    given; with ``seen``, only a call whose entry and shapes are not in it
+    yet (it grows by each call recorded)."""
     calls = {"warp_twopass": [], "hat_resample": []}
     saved = {name: getattr(k1, name) for name in calls}
 
     def recording(name):
         def run(*args):
-            calls[name].append(args)
+            key = (name, *(tuple(a.shape) if hasattr(a, "shape") else a for a in args))
+            if seen is None or key not in seen:
+                calls[name].append(args)
+                if seen is not None:
+                    seen.add(key)
             return saved[name](*args)
 
         return run
@@ -200,25 +196,6 @@ def with_plain_k1(k1, fn):
         return fn()
     finally:
         k1.warp_twopass, k1.hat_resample = saved
-
-
-def k1_library(src, pos):
-    """One PyTorch call computing the hat resample: grid_sample over
-    (N, 1, 1, J) rows with align_corners=True, zero padding, y = 0."""
-    import torch
-    import torch.nn.functional as F
-
-    j = src.shape[-1]
-    inp = src.reshape(-1, 1, 1, j)
-    x = pos.reshape(-1, 1, pos.shape[-1], 1) * (2.0 / (j - 1)) - 1.0
-    grid = torch.cat([x, torch.zeros_like(x)], dim=-1)
-
-    def call():
-        # PyTorch's own CUDA sampler: cuDNN's refuses batches this large
-        with torch.backends.cudnn.flags(enabled=False):
-            return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-
-    return call
 
 
 def max_err(got, want) -> float:
@@ -282,50 +259,27 @@ def seeded_quads(seed: int):
     ]).astype(np.float32)
 
 
-def tap_sector_bytes(imgs, hx, vy) -> int:
-    """Bytes of the 32-byte sectors of ``imgs`` (B, H, W) that the two-pass
-    warp's boards depend on: for each board pixel the source rows of its
-    nonzero pass-2 taps at ``vy`` (B, out_w, out_h), and in each such row
-    the columns of its nonzero pass-1 taps at ``hx`` (B, H, out_w).  What a
-    warp that read only its taps would move; the run's own positions."""
-    import torch
-
-    b, h, w = imgs.shape
-    n = torch.arange(b, device=vy.device)[:, None, None].expand_as(vy)
-    u = torch.arange(vy.shape[1], device=vy.device)[None, :, None].expand_as(vy)
-    sectors = []
-    for dr in (0, 1):
-        r = torch.floor(vy) + dr
-        ok = (r >= 0) & (r < h) & (1.0 - torch.abs(vy - r) > 0)
-        nn, rr, uu = n[ok], r[ok].long(), u[ok]
-        p = hx[nn, rr, uu]
-        for dc in (0, 1):
-            c = torch.floor(p) + dc
-            okc = (c >= 0) & (c < w) & (1.0 - torch.abs(p - c) > 0)
-            flat = (nn[okc] * h + rr[okc]) * w + c[okc].long()
-            sectors.append(torch.unique((imgs.data_ptr() % 32 + 4 * flat) // 32))
-    return 32 * int(torch.unique(torch.cat(sectors)).numel())
-
-
 def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
-    """Times (ms) on one warp's inputs: the two kernels together and each
-    alone; the route with the positions in memory (positions built by torch
-    ops, then ``hat_resample`` for each pass); the plain version; and the
-    grid_sample yardstick given the positions, and with building them.
-    Bounds, at the data sheet's memory rate: the function's own floor
-    (``bound_ms``: the source sectors its taps touch, ``tap_sector_bytes``,
-    the matrices read and the boards written) and the designs' (the whole
-    images read, as pass 1 stages them, and the intermediate written and
-    read as well); ``copy_tb_per_s`` is what a device-to-device copy of the
-    images reaches (bytes read + written over its time)."""
+    """Times (ms) on one warp's inputs: ``tools/microbench.warp_times`` (the
+    kernels, the plain version, the grid_sample yardstick given the
+    positions, and the function's floor ``bound_ms``: the source sectors its
+    taps touch, the matrices read and the boards written), then each kernel
+    alone, the route with the positions in memory (positions built by torch
+    ops, then ``hat_resample`` for each pass) and the yardstick with
+    building the positions.  The designs' bounds, at the data sheet's
+    memory rate: the whole images read, as pass 1 stages them, and the
+    intermediate written and read as well; ``copy_tb_per_s`` is what a
+    device-to-device copy of the images reaches (bytes read + written over
+    its time)."""
     import torch
+
+    from chessvision_tpu_torch.tools.microbench import event_ms, grid_sample_rows, warp_times
 
     src_h = imgs.shape[1]
-    res = {"shape": [list(imgs.shape), out_h, out_w]}
-    res["ms"] = cuda_ms(lambda: k1.warp_twopass(imgs, minv, out_h, out_w), iters=20)
+    res = {"shape": [list(imgs.shape), out_h, out_w], **warp_times(imgs, minv, out_h, out_w, plain_iters, HBM_BYTES_PER_S)}
     tmp = k1.warp_pass1(imgs, minv, out_w)
-    res["pass1_ms"] = cuda_ms(lambda: k1.warp_pass1(imgs, minv, out_w), iters=20)
-    res["pass2_ms"] = cuda_ms(lambda: k1.warp_pass2(tmp, minv, out_h), iters=20)
+    res["pass1_ms"] = event_ms(lambda: k1.warp_pass1(imgs, minv, out_w), iters=20)
+    res["pass2_ms"] = event_ms(lambda: k1.warp_pass2(tmp, minv, out_h), iters=20)
 
     def positions_route():
         hx, vy = k1.twopass_positions(minv, src_h, out_h, out_w)
@@ -334,29 +288,21 @@ def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
 
     hx, vy = k1.twopass_positions(minv, src_h, out_h, out_w)
     tmp_t = tmp.transpose(1, 2)
-    res["positions_route_ms"] = cuda_ms(positions_route, iters=10)
-    res["positions_ms"] = cuda_ms(lambda: k1.twopass_positions(minv, src_h, out_h, out_w), iters=10)
-    res["hat_resample_pass1_ms"] = cuda_ms(lambda: k1.hat_resample(imgs, hx), iters=20)
-    res["hat_resample_pass2_ms"] = cuda_ms(lambda: k1.hat_resample(tmp_t, vy), iters=20)
-    res["plain_ms"] = cuda_ms(lambda: k1.warp_twopass_plain(imgs, minv, out_h, out_w), iters=plain_iters, warmup=1)
-
-    lib1, lib2 = k1_library(imgs, hx), k1_library(tmp_t, vy)
-    res["library_ms"] = cuda_ms(lib1, iters=20) + cuda_ms(lib2, iters=20)
+    res["positions_route_ms"] = event_ms(positions_route, iters=10)
+    res["positions_ms"] = event_ms(lambda: k1.twopass_positions(minv, src_h, out_h, out_w), iters=10)
+    res["hat_resample_pass1_ms"] = event_ms(lambda: k1.hat_resample(imgs, hx), iters=20)
+    res["hat_resample_pass2_ms"] = event_ms(lambda: k1.hat_resample(tmp_t, vy), iters=20)
 
     def library_with_positions():
         hx_, vy_ = k1.twopass_positions(minv, src_h, out_h, out_w)
-        mid = k1_library(imgs, hx_)().reshape(imgs.shape[0], src_h, out_w)
-        return k1_library(mid.transpose(1, 2), vy_)()
+        mid = grid_sample_rows(imgs, hx_)().reshape(imgs.shape[0], src_h, out_w)
+        return grid_sample_rows(mid.transpose(1, 2), vy_)()
 
-    res["library_with_positions_ms"] = cuda_ms(library_with_positions, iters=5)
-    want = k1.hat_resample_plain(tmp_t, vy)
-    res["library_max_abs_diff"] = max_err(lib2().reshape(want.shape), want)
+    res["library_with_positions_ms"] = event_ms(library_with_positions, iters=5)
     scratch = torch.empty_like(imgs)
-    res["copy_tb_per_s"] = 8 * imgs.numel() / cuda_ms(lambda: scratch.copy_(imgs), iters=20) / 1e9
+    res["copy_tb_per_s"] = 8 * imgs.numel() / event_ms(lambda: scratch.copy_(imgs), iters=20) / 1e9
     io_bytes = 4 * (minv.numel() + imgs.shape[0] * out_h * out_w)
-    res["tap_bytes"] = tap_sector_bytes(imgs, hx, vy)
     res["source_share"] = res["tap_bytes"] / (4 * imgs.numel())
-    res["bound_ms"] = (res["tap_bytes"] + io_bytes) / HBM_BYTES_PER_S * 1e3
     design_bytes = 4 * imgs.numel() + io_bytes
     res["two_kernel_floor_ms"] = (design_bytes + 8 * tmp.numel()) / HBM_BYTES_PER_S * 1e3
     res["positions_route_floor_ms"] = (
@@ -867,32 +813,6 @@ def phase_augment(k1, seed: int) -> tuple[int, dict, dict]:
     return seg_launches + cls_launches, errs, times
 
 
-def conv_flops(model, x) -> float:
-    """Multiply-adds ×2 of every convolution and linear layer in one forward
-    of ``model`` on ``x``, from the shapes."""
-    import torch
-    from torch import nn
-
-    total = [0.0]
-
-    def hook(m, inp, out):
-        if isinstance(m, nn.ConvTranspose2d):
-            total[0] += 2.0 * inp[0].numel() * m.out_channels * m.kernel_size[0] * m.kernel_size[1] / m.groups
-        elif isinstance(m, nn.Conv2d):
-            total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
-        elif isinstance(m, nn.Linear):
-            total[0] += 2.0 * out.numel() * m.in_features
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
-    try:
-        with torch.no_grad():
-            model(x)
-    finally:
-        for h in hooks:
-            h.remove()
-    return total[0]
-
-
 def same_keys_and_shapes(path: str, reference: str) -> list[str]:
     """Keys whose presence or shape differ between two checkpoints, apart
     from the optimizer leaves and the metadata."""
@@ -920,6 +840,7 @@ def time_train_steps(k1, kind: str, seed: int, profile: bool = False, mesh=None,
     from chessvision_tpu_torch.models.layers import set_compute_dtype
     from chessvision_tpu_torch.parallel import mesh as mesh_lib
     from chessvision_tpu_torch.train import steps
+    from chessvision_tpu_torch.tools.flops import conv_flops
     from chessvision_tpu_torch.train.augment import augment_classification_batch, augment_segmentation_batch, fold_in
 
     n = mesh.size if mesh is not None and per_rank else 1
@@ -2755,6 +2676,119 @@ def phase_edges(k1, cv, seed: int, root: str) -> tuple[int, dict]:
     return launches, rec
 
 
+BENCH_KEYS = ("metric", "value", "unit", "paths_boards_per_sec", "paths_kb_per_board", "e2e_mode",
+              "stream_batches_per_cycle", "serialized_yuv444_boards_per_sec", "compute_boards_per_sec",
+              "compute_batch_size_attempted", "compute_batch_size", "compute_mfu", "pipeline_gflop_per_board",
+              "pipeline_gflop_per_board_in_bounds", "link_mb_per_sec_before_e2e",
+              "link_mb_per_sec_after_e2e", "p50_latency_ms", "p50_latency_lite_ms", "batch_size",
+              "boards_found_last_batch", "fens_sha256", "backend", "device", "power_limit_w")
+STAGE_KEYS = ("resize_512_256", "grayscale", "unet_fwd", "quadrangle", "homography_warp", "squares_classifier",
+              "fused_total", "batch_size", "backend", "device", "power_limit_w")
+TRAIN_KEYS = ("trainer", "batch_size", "image_size", "step_ms", "images_per_sec", "steps_per_epoch",
+              "epoch_s_projected", "backend", "device", "power_limit_w")
+SWEEP_KEYS = ("batch", "chunk", "refine", "compile_plus_first_s", "boards_per_sec", "ms_per_batch", "boards_found",
+              "fens_sha256", "peak_memory_gb", "backend", "device", "power_limit_w")
+MICRO_KEYS = ("warp_twopass_ms", "warp_twopass_plain_ms", "grid_sample_twice_ms", "warp_max_abs_err",
+              "warp_bound_ms", "smooth_9x9_2d", "smooth_9x9_sep", "flood_halfres", "support_decimate",
+              "backend", "device", "power_limit_w")
+
+
+def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
+    """Phase 19: the port's measuring tools, each one's ``main()`` in this
+    process at its defaults on the card, its printed lines caught, K1
+    counted and the first call of each shape it hands K1 recorded:
+    ``bench_torch.py`` (B=128, iters 6), ``profile_stages`` (B=128),
+    ``bench_training`` (both trainers), ``sweep_arbitrate_chunk`` at chunks
+    128 and 512 (B=512), ``microbench --which all`` and ``mfu_accounting``
+    on the times those printed.  Each must print its JSON line(s) with
+    its keys and the card's name and power limit; the bench's last FENs
+    equal ``process_batch``'s on its frames and found boards; the sweep's
+    FENs are equal across chunks; microbench's K1 error is 0; every
+    recorded K1 call is held against its plain version.  Returns K1's
+    launches inside the tools and the tools' records."""
+    import io
+
+    import torch
+
+    from chessvision_tpu_torch.tools import (
+        bench,
+        bench_training,
+        mfu_accounting,
+        microbench,
+        profile_stages,
+        sweep_arbitrate_chunk,
+    )
+
+    t_phase = time.perf_counter()
+    smi_name, _, smi_limit = card.rpartition(",")
+    try:
+        limit = float(smi_limit.split()[0])
+    except (ValueError, IndexError):
+        limit = None
+    seen: set = set()
+    res: dict = {"errors": {}, "seconds": {}, "launches": {}}
+
+    def call(tool: str, main, argv: list[str], n_lines: int, keys: tuple) -> list[dict]:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        k1.launches = 0
+        with contextlib.redirect_stdout(buf):
+            rc, calls = capture_k1(k1, lambda: main(argv), seen)
+        torch.cuda.synchronize()
+        launched = k1.launches
+        res["launches"][tool] = res["launches"].get(tool, 0) + launched
+        res["seconds"][tool] = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"[measure] {tool}: {line}")
+        recs = [json.loads(line) for line in lines if line.startswith("{")]
+        if rc != 0 or len(recs) != n_lines:
+            fail(f"measure: {tool} {argv} returned {rc} with {len(recs)} JSON lines, expected {n_lines}")
+        for rec in recs:
+            missing = [k for k in keys if k not in rec]
+            if missing or rec["device"] != smi_name.strip() or rec["power_limit_w"] != limit:
+                fail(f"measure: {tool} line lacks {missing} or names another card than {card!r}: {rec}")
+        if calls["warp_twopass"] or calls["hat_resample"]:
+            res["errors"].update(check_captured(k1, calls, f"measure {tool}"))
+        log(f"[measure] {tool} {' '.join(argv)}: {res['seconds'][tool]:.1f} s, K1 launches {launched}")
+        return recs
+
+    (rec,) = call("bench_torch", bench.main, [], 1, BENCH_KEYS)
+    frames, _ = bench.bench_frames(rec["batch_size"], 0)
+    want = cv.engine.process_batch(frames)
+    if rec["boards_found_last_batch"] <= 0 or rec["fens_sha256"] != bench.fens_digest(want.fens):
+        fail(f"measure: the bench's last FENs ({rec['boards_found_last_batch']} found) differ from "
+             f"process_batch's on its frames ({int(want.board_found.sum())} found)")
+    res["bench"] = rec
+    (res["profile_stages"],) = call("profile_stages", profile_stages.main, ["--batch-size", "128"], 1, STAGE_KEYS)
+    unet, cls = call("bench_training", bench_training.main, [], 2, TRAIN_KEYS)
+    res["bench_training"] = [unet, cls]
+    # B=1024 needs ~75 GB at its peak (the UNet's float32 BatchNorm maps) and ran out of memory in
+    # a process of its own on the 80 GB card; 512 is the batch the bench's compute probe settles at
+    sweeps = [call("sweep_arbitrate_chunk", sweep_arbitrate_chunk.main, ["--batch", "512", "--chunk", str(c)], 1,
+                   SWEEP_KEYS)[0] for c in (128, 512)]
+    if len({(s["boards_found"], s["fens_sha256"]) for s in sweeps}) != 1 or not sweeps[0]["boards_found"]:
+        fail(f"measure: the sweep's found boards and FENs differ across chunks: {sweeps}")
+    res["sweep"] = sweeps
+    (res["microbench"],) = call("microbench", microbench.main, ["--which", "all"], 1, MICRO_KEYS)
+    if res["microbench"]["warp_max_abs_err"] != 0.0:
+        fail(f"measure: microbench's K1 differs from its plain version by {res['microbench']['warp_max_abs_err']}")
+    (res["mfu"],) = call("mfu_accounting", mfu_accounting.main,
+                         ["--unet-step-ms", str(unet["step_ms"]), "--cls-step-ms", str(cls["step_ms"]),
+                          "--compute-boards-per-sec", str(rec["compute_boards_per_sec"]),
+                          "--warp-ms-128", str(res["microbench"]["warp_twopass_ms"])], 1,
+                         ("rows", "forward_gflop", "xla_gflop", "flop_count", "device", "power_limit_w"))
+    idle = [t for t in ("bench_torch", "profile_stages", "bench_training", "microbench") if not res["launches"][t]]
+    if idle:
+        fail(f"measure: K1 never launched inside {idle}")
+    res["max_abs_err"] = max((e for case in res["errors"].values() for e in case.values()), default=0.0)
+    launches = sum(res["launches"].values())
+    res["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"[measure] K1 launches {launches} in the tools {res['launches']}, {len(res['errors'])} recorded calls held against the plain "
+        f"version, max |kernel - plain| {res['max_abs_err']}; phase {res['seconds']['phase']:.1f} s")
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3014,8 +3048,10 @@ def main() -> int:
     # -- 18. an empty batch and the environment ------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
         launches_edges, edges = phase_edges(k1, cv, args.seed, root)
+    # -- 19. the measuring tools --------------------------------------------------------------------
+    launches_measure, measure = phase_measure(k1, cv, card)
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
-                photos["max_abs_err"], edges["max_abs_err"])
+                photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
@@ -3023,7 +3059,8 @@ def main() -> int:
     log(f"[main] K1 launches by path: process_image + process_batch {launches}, run_stream {launches_stream}, "
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
-        f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}")
+        f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}, "
+        f"measure {launches_measure}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -3040,7 +3077,7 @@ def main() -> int:
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
                      + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
-                     + launches_photos + launches_edges + sum(by_card.values())),
+                     + launches_photos + launches_edges + launches_measure + sum(by_card.values())),
         "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],

@@ -528,3 +528,62 @@ def test_an_engine_on_the_second_card_leaves_nothing_on_the_first() -> None:
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert all(cards == [1] for cards in rec["stages"].values()), rec["stages"]
+
+
+def _tool_lines(main, argv: list[str], capsys) -> list[dict]:
+    import json
+
+    assert main(argv) == 0
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+
+
+def _on_the_card(rec: dict) -> None:
+    assert rec["backend"] == "cuda" and rec["device"] != "cpu" and "power_limit_w" in rec
+
+
+def test_bench_quick_on_the_card(capsys) -> None:
+    """bench_torch.py --quick: one line, boards found, FENs equal
+    process_batch's on its frames, a compute MFU."""
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.tools import bench
+
+    (rec,) = _tool_lines(bench.main, ["--quick"], capsys)
+    _on_the_card(rec)
+    frames, _ = bench.bench_frames(4, 0)
+    want = ChessVision(device="cuda").engine.process_batch(frames)
+    assert rec["boards_found_last_batch"] == int(want.board_found.sum()) > 0
+    assert rec["fens_sha256"] == bench.fens_digest(want.fens)
+    assert 0 < rec["compute_mfu"] < 1
+
+
+def test_profile_stages_bench_training_and_sweep_on_the_card(capsys) -> None:
+    _need_card()
+    from chessvision_tpu_torch.tools import bench_training, profile_stages, sweep_arbitrate_chunk
+
+    before = hat_resample.launches
+    (stages,) = _tool_lines(profile_stages.main, ["--batch-size", "8", "--iters", "2"], capsys)
+    assert hat_resample.launches > before
+    assert all(stages[k] > 0 for k in profile_stages.STAGES) and stages["fused_total"] > 0
+    lines = _tool_lines(bench_training.main, ["--quick"], capsys)
+    assert [r["trainer"] for r in lines] == ["unet", "classifier"] and all(r["step_ms"] > 0 for r in lines)
+    sweeps = [_tool_lines(sweep_arbitrate_chunk.main, ["--batch", "16", "--chunk", str(c), "--iters", "1"], capsys)[0]
+              for c in (3, 16)]
+    assert sweeps[0]["fens_sha256"] == sweeps[1]["fens_sha256"] and sweeps[0]["boards_found"] > 0
+    for rec in [stages, *lines, *sweeps]:
+        _on_the_card(rec)
+
+
+def test_microbench_reports_k1_exact_and_mfu_accounting_on_the_card(capsys) -> None:
+    """microbench --which all: K1 bit-exact against its plain version at the
+    main path's shapes; mfu_accounting's table on given times."""
+    _need_card()
+    from chessvision_tpu_torch.tools import mfu_accounting, microbench
+
+    (rec,) = _tool_lines(microbench.main, ["--which", "all", "--iters", "2"], capsys)
+    _on_the_card(rec)
+    assert rec["warp_max_abs_err"] == 0.0 and 0 < rec["warp_bound_ms"] < rec["warp_twopass_ms"]
+    (mfu,) = _tool_lines(mfu_accounting.main, ["--unet-step-ms", "80", "--cls-step-ms", "40",
+                                               "--compute-boards-per-sec", "900"], capsys)
+    assert mfu["backend"] == "cuda" and [r["peak_share"] > 0 for r in mfu["rows"]] == [True] * 4
+    assert mfu["rows"][3]["bound_ms"] == pytest.approx(rec["warp_bound_ms"], rel=1e-12)  # one floor, one input

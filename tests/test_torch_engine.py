@@ -351,10 +351,10 @@ def test_entry_points_raise_without_gpu() -> None:
 
 
 def test_package_never_imports_jax() -> None:
-    """Every module of the port and the port's three examples import
-    without JAX or the JAX package, and the port's native loader and
-    packers never map a file of the JAX package's ``lib/`` (checked in the
-    process's memory maps)."""
+    """Every module of the port, the port's three examples and
+    ``bench_torch.py`` import without JAX or the JAX package, and the
+    port's native loader and packers never map a file of the JAX package's
+    ``lib/`` (checked in the process's memory maps)."""
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
         "import numpy as np\n"
@@ -366,6 +366,7 @@ def test_package_never_imports_jax() -> None:
         "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "    print('example', name)\n"
+        "import bench_torch\n"
         "from chessvision_tpu_torch import engine, native_loader\n"
         "native_loader.available()\n"
         "engine.pack_inputs_yuv444(np.zeros((1, 512, 512, 3), np.uint8))\n"
@@ -385,6 +386,8 @@ def test_package_never_imports_jax() -> None:
     for name in (
         "serve.server", "serve.webroot_server", "models.yolo", "profiling", "parallel.mesh", "ingest.pipeline",
         "ingest.merge", "tools.error_analysis", "tools.mine_warped_squares", "native_loader", "curation",
-        "runstore.view", "train.sweep", "train.yolo_export", "typecheck",
+        "runstore.view", "train.sweep", "train.yolo_export", "typecheck", "tools.card", "tools.flops", "tools.bench",
+        "tools.profile_stages", "tools.bench_training", "tools.mfu_accounting", "tools.sweep_arbitrate_chunk",
+        "tools.microbench",
     ):
         assert f"'chessvision_tpu_torch.{name}'" in out.stdout
