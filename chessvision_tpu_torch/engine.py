@@ -66,11 +66,12 @@ _ARBITRATE_TAU = 0.01
 
 # Boards per chunk of the arbitrate tail (correction resample + two
 # classifier passes + blend) on each rank, which bounds the ResNet's live
-# activations (64 crops a board; bf16 conv outputs plus float32 BatchNorm
-# and ReLU outputs).  The JAX package chunks at 128 for a 16 GB TPU; an
-# 80 GB H100 runs the whole pipeline on 512 boards (peak memory:
-# chip_smoke.py --profile, recorded in PERF.md).  CVTPU_ARBITRATE_CHUNK
-# sets it for an Engine built without ``arbitrate_chunk``.
+# activations (64 crops a board; bf16 conv outputs and the float32 stem
+# and block outputs that bn_act writes).  The JAX package chunks at 128
+# for a 16 GB TPU; on an 80 GB H100 a chunk of 512 boards peaks below the
+# UNet of a 1024-frame batch (tools/memory_peaks, recorded in PERF.md).
+# CVTPU_ARBITRATE_CHUNK sets it for an Engine built without
+# ``arbitrate_chunk``.
 _ARBITRATE_CHUNK = 512
 
 # margin (px) of the warp canvas in refine modes: the board warps into a

@@ -8,7 +8,10 @@ cast inside ``forward``: the training contract) and otherwise in the dtype
 of their weight (weights cast once: the inference contract of
 ``set_compute_dtype``).  ``BatchNorm2d`` computes in float32 and has the
 Flax train path: batch statistics, running averages updated with the
-biased batch variance.
+biased batch variance.  In inference (eval mode, no gradient)
+``BatchNorm2d.act`` normalizes, adds a residual, applies ReLU and stores the
+result once in the dtype its consumer reads (the ``bn_act`` kernel), as
+XLA's fusion does in the JAX program.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from chessvision_tpu_torch.ops.bn_act import bn_act
 from chessvision_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_differentiable
 
 
@@ -41,6 +45,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         )
 
 
+def conv_dtype(conv: nn.Conv2d | nn.ConvTranspose2d) -> torch.dtype:
+    """The dtype ``conv`` computes in (and casts its input to)."""
+    return getattr(conv, "compute_dtype", None) or conv.weight.dtype
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm in float32 (eps 1e-5 in the UNet and the ResNet, 1e-3 in
     the YOLO family).  In eval mode it normalizes with the running
@@ -56,6 +65,39 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, channels: int, eps: float = 1e-5) -> None:
         super().__init__(channels, eps=eps)
+        self._mul = torch.empty(0)
+        self._mul_key: tuple | None = None
+
+    def act(
+        self,
+        x: torch.Tensor,
+        relu: bool = True,
+        residual: torch.Tensor | None = None,
+        out_dtype: torch.dtype = torch.float32,
+    ) -> torch.Tensor:
+        """``relu(bn(x) [+ residual])``.  In inference (eval mode, no
+        gradient) one ``bn_act`` pass in Flax's order, stored in
+        ``out_dtype``: the dtype of the consumer that reads it.  Otherwise
+        (train mode, or a gradient through frozen statistics) the float32
+        ops of ``forward``, whatever ``out_dtype``."""
+        if self.training or torch.is_grad_enabled():
+            y = self(x)
+            if residual is not None:
+                y = y + residual
+            return F.relu(y) if relu else y
+        return bn_act(x, self.running_mean, self._eval_mul(), self.bias, residual, relu, out_dtype)
+
+    def _eval_mul(self) -> torch.Tensor:
+        """``rsqrt(running_var + eps) · weight``, made once and again only
+        when the statistics or the weight change (in place or moved)."""
+        tensors = (self.running_var, self.weight)
+        # a tensor made under inference_mode keeps no version: made each call
+        key = None if any(t.is_inference() for t in tensors) else tuple(
+            (t.device, t.data_ptr(), t._version) for t in tensors)
+        if key is None or key != self._mul_key:
+            self._mul = torch.rsqrt(self.running_var + self.eps) * self.weight.detach()
+            self._mul_key = key
+        return self._mul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()

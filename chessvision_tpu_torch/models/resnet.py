@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chessvision_tpu_torch.models.layers import BatchNorm2d, Conv2d
+from chessvision_tpu_torch.models.layers import BatchNorm2d, Conv2d, conv_dtype
 
 
 class BasicBlock(nn.Module):
@@ -30,10 +30,12 @@ class BasicBlock(nn.Module):
             self.down_bn = BatchNorm2d(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = self.down_bn(self.down_conv(x)) if self.has_down else x
-        return F.relu(y + residual)
+        # in inference bn1's map is stored in conv2's dtype (its only
+        # reader) and the block's output, the next block's residual, in
+        # float32 by one pass of bn2 + residual + ReLU
+        y = self.conv2(self.bn1.act(self.conv1(x), out_dtype=conv_dtype(self.conv2)))
+        residual = self.down_bn.act(self.down_conv(x), relu=False) if self.has_down else x
+        return self.bn2.act(y, residual=residual)
 
 
 class ResNet(nn.Module):
@@ -64,7 +66,8 @@ class ResNet(nn.Module):
         self, x: torch.Tensor, return_features: bool = False
     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        # float32: the max-pooled stem is layer1_0's residual
+        x = self.bn1.act(self.conv1(x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.block_names:
             x = getattr(self, name)(x)

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chessvision_tpu_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
+from chessvision_tpu_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d, conv_dtype
 
 
 class DoubleConv(nn.Module):
@@ -25,9 +25,11 @@ class DoubleConv(nn.Module):
         self.conv2 = Conv2d(mid, out_channels, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        return F.relu(self.bn2(self.conv2(x)))
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """In inference the output is stored in ``out_dtype`` (the
+        dtype of its consumers); the inner map in conv2's dtype."""
+        x = self.bn1.act(self.conv1(x), out_dtype=conv_dtype(self.conv2))
+        return self.bn2.act(self.conv2(x), out_dtype=out_dtype)
 
 
 class Down(nn.Module):
@@ -35,8 +37,8 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_channels, out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.max_pool2d(x, 2))
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.conv(F.max_pool2d(x, 2), out_dtype)
 
 
 def _align_corners_weights(n_in: int, n_out: int) -> torch.Tensor:
@@ -75,7 +77,7 @@ class Up(nn.Module):
             self.up = ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
             self.conv = DoubleConv(in_channels // 2 + skip_channels, out_channels)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         x1 = _bilinear_upsample_2x(x1) if self.bilinear else self.up(x1)
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
@@ -83,7 +85,9 @@ class Up(nn.Module):
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         # concatenation promotes to the wider type, as jnp.concatenate does
         dtype = torch.promote_types(x1.dtype, x2.dtype)
-        return self.conv(torch.cat([x2.to(dtype), x1.to(dtype)], dim=1))
+        x = torch.cat([x2.to(dtype), x1.to(dtype)], dim=1)
+        del x1  # the upsampled map: its values live on in the concatenation
+        return self.conv(x, out_dtype)
 
 
 class UNet(nn.Module):
@@ -108,17 +112,25 @@ class UNet(nn.Module):
     def forward(
         self, x: torch.Tensor, return_features: bool = False
     ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        # In inference each DoubleConv stores its output once, in the dtype
+        # of what reads it: a map that only convolutions read (after a max
+        # pool, which commutes with rounding, or a concatenation) in the
+        # convolutions' dtype; the bottleneck, which the features average,
+        # and every map the bilinear variant upsamples (in the map's dtype)
+        # in float32, as the JAX program keeps them.  Each skip is dropped
+        # once its Up has used it.
+        act = conv_dtype(self.outc)
+        up_in = torch.float32 if self.up1.bilinear else act
         x = x.permute(0, 3, 1, 2)
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
+        skips = [self.inc(x, act)]
+        for down in (self.down1, self.down2, self.down3):
+            skips.append(down(skips[-1], act))
+        x = self.down4(skips[-1], torch.float32)
+        features = x.float().mean(dim=(2, 3)) if return_features else None
+        for up in (self.up1, self.up2, self.up3):
+            x = up(x, skips.pop(), up_in)
+        x = self.up4(x, skips.pop(), act)
         logits = self.outc(x).float().permute(0, 2, 3, 1)
         if return_features:
-            return logits, x5.float().mean(dim=(2, 3))
+            return logits, features
         return logits

@@ -26,8 +26,10 @@ zeros made on the device (cuDNN's algorithm choice, lazy set-up):
    chroma: reported, never the headline) and ``raw_frame`` (768 KB);
 3. one serialized yuv444 pass (pack, upload, compute in sequence), so that
    the streams' overlap shows;
-4. ``Engine.run_device`` on frames already on the card at 8× the batch,
-   halved only when the card runs out of memory.
+4. ``Engine.run_device`` on frames already on the card at 8× the batch
+   (1024 at the default 128), halved only when the card runs out of
+   memory, as the JAX script does; ``compute_batch_size`` is the batch it
+   measured at.
 
 Frames: the 512² JPEGs of ``<data root>/test/initial/raw`` where present;
 otherwise ``synthetic.board_frames(seed, 32)`` (chroma limited, so that the

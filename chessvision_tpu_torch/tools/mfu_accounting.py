@@ -134,7 +134,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--unet-step-ms", type=float, default=None, help="UNet train step at B=32 (default: measured)")
     ap.add_argument("--cls-step-ms", type=float, default=None, help="ResNet18 train step at B=256 (default: measured)")
     ap.add_argument("--compute-boards-per-sec", type=float, default=None,
-                    help="run_device on frames on the card (default: measured at B=1024, halved on out-of-memory)")
+                    help="run_device on frames on the card (default: measured at B=1024 as bench_torch.py's probe "
+                         "measures it, halved only on out-of-memory)")
     ap.add_argument("--warp-ms-128", type=float, default=None, help="K1 ms at B=128 (default: measured)")
     ap.add_argument("--refine", default=None, help="engine refine mode to account (default: the shipping default)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (every time given)")

@@ -9,12 +9,12 @@ each launch covers.  One configuration a run, as the JAX script runs it
 (``CVTPU_ARBITRATE_CHUNK`` sets the engine's default chunk):
 
     for c in 128 256 512 1024; do
-      python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --batch 512 --chunk $c; done
-    python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --batch 512 --refine off
-    python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --batch 512 --refine detect
+      python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --chunk $c; done
+    python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --refine off
+    python -m chessvision_tpu_torch.tools.sweep_arbitrate_chunk --refine detect
 
-The default batch, the JAX script's 1024, does not fit an 80 GB card yet
-(ROADMAP §3 item 11): such a run prints the out-of-memory error.
+The default batch is the JAX script's 1024.  A batch the card cannot hold
+prints the out-of-memory error instead of the rates.
 
 Frames: synthetic boards of seed 0 (32 distinct) tiled on the device.
 Prints one JSON line: the batch's boards/s and ms, the first call's
@@ -64,8 +64,7 @@ def run(engine: Engine, frames: torch.Tensor, iters: int) -> dict[str, Any]:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Arbitrate-chunk sweep of the PyTorch port (one JSON line)")
-    ap.add_argument("--batch", type=int, default=1024,
-                    help="boards a batch (1024 does not fit an 80 GB card yet: ROADMAP §3 item 11; 512 does)")
+    ap.add_argument("--batch", type=int, default=1024, help="boards a batch")
     ap.add_argument("--chunk", type=int, default=128, help="arbitrate tail chunk")
     ap.add_argument("--refine", default="arbitrate", choices=["arbitrate", "detect", "off"])
     ap.add_argument("--iters", type=int, default=6)

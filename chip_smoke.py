@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-Phases 1–15 and 17–19 need one card; phase 16 runs over every card of a
+Phases 1–15 and 17–20 need one card; phase 16 runs over every card of a
 machine that shows two or more, or over ``--cards N`` (which fails with
 fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
 (``--load-client``, ``--mesh-child``, ``--cli-trainers``,
@@ -17,10 +17,19 @@ Phases (any failure exits non-zero without the final result line):
    (refine="arbitrate", margin 32) with the committed UNet(base=32) and
    ResNet18 weights in bfloat16 on synthetic 512² frames made from
    ``--seed``; each kernel's launch count is zeroed just before and read
-   just after, and must have risen;
-3. plain path: the same batch with each kernel swapped for its plain
-   PyTorch version must give the same ``found`` flags, FENs and boards;
-4. kernels vs plain: both entries of K1 against their plain versions
+   just after, and must have risen (K1 2 a pipeline call, ``bn_act`` once a
+   BatchNorm layer of the UNet and twice of the ResNet18);
+3. plain path: the same batch with each kernel (K1's entries and
+   ``bn_act``) swapped for its plain PyTorch version must give the same
+   ``found`` flags, FENs and boards;
+4. kernels vs plain: ``bn_act`` against its plain version bit for bit at
+   every call shape the bfloat16 and the float32 models hand it at batch 8
+   and on seeded edge cases (NaN and ±Inf, 13 channels on a 37×41 map, a
+   transposed view, a channels-last map, an unaligned view; each in and out
+   of bf16 and float32, with and without residual and ReLU), timed at the
+   UNet's first layer and a ResNet18 block at batch 128 beside its bound,
+   its plain version and the eager ops it replaced; both entries of K1
+   against their plain versions
    (stated tolerance): ``warp_twopass`` on the inputs the main path gave
    it at batch 8 and 128 and on seeded rotated, out-of-frame and identity
    quads, ``hat_resample`` on the positions of the same inputs and on
@@ -112,13 +121,25 @@ Phases (any failure exits non-zero without the final result line):
 19. measure: the port's measuring tools (``chessvision_tpu_torch/tools``),
    each one's ``main()`` in this process at its defaults: ``bench_torch.py``,
    ``profile_stages``, ``bench_training``, ``sweep_arbitrate_chunk`` at chunks
-   128 and 512 (B=512), ``microbench --which all`` and ``mfu_accounting`` (on
+   128 and 512 (its default B=1024), ``microbench --which all`` and ``mfu_accounting`` (on
    the times those printed); each prints its JSON line(s) with its keys
    and the card's name and power limit, the bench's last FENs equal
    ``process_batch``'s, the sweep's are equal across chunks, and K1 runs
-   inside the bench, the stages, the trainers and the microbenchmark.
+   inside the bench, the stages, the trainers and the microbenchmark;
+20. memory and the last entry points, after phase 19's bench streams in
+   this process: ``run_device`` at B=1024 (the JAX package's batch) with
+   ``found`` flags and FENs equal to two B=512 calls, the peak memory of
+   each through the UNet and after the tail (and of B=128); phase 19's
+   sweep at B=1024 without an error; ``tools/loadtest_server`` at 32
+   requests one and 16 at a time (served FENs equal ``process_batch``'s);
+   ``tools/make_hard_example_weights`` on a seeded squares root, then one
+   ``train_classifier`` epoch with ``use_sample_weights`` reading the
+   column it wrote.
 
-Phases 7–10 and 13–19 also record what their path hands K1 (a streamed batch of each
+``bn_act``'s launches are counted over each path (zeroed just before,
+read just after) and must have risen on every path that runs the UNet
+or the ResNet18 in this process.  Phases 7–10 and 13–19 also record what
+their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
@@ -189,13 +210,17 @@ def capture_k1(k1, fn, seen: set | None = None):
 
 
 def with_plain_k1(k1, fn):
-    """Run ``fn`` with both K1 entries swapped for their plain PyTorch versions."""
-    saved = (k1.warp_twopass, k1.hat_resample)
-    k1.warp_twopass, k1.hat_resample = k1.warp_twopass_plain, k1.hat_resample_plain
+    """Run ``fn`` with every kernel swapped for its plain PyTorch version:
+    both K1 entries, and ``bn_act`` where the models call it."""
+    from chessvision_tpu_torch.models import layers
+    from chessvision_tpu_torch.ops import bn_act as bnk
+
+    saved = (k1.warp_twopass, k1.hat_resample, layers.bn_act)
+    k1.warp_twopass, k1.hat_resample, layers.bn_act = k1.warp_twopass_plain, k1.hat_resample_plain, bnk.bn_act_plain
     try:
         return fn()
     finally:
-        k1.warp_twopass, k1.hat_resample = saved
+        k1.warp_twopass, k1.hat_resample, layers.bn_act = saved
 
 
 def max_err(got, want) -> float:
@@ -237,6 +262,126 @@ def check_captured(k1, calls: dict, where: str) -> dict:
     if not worst <= K1_TOL:
         fail(f"{where}: K1 kernel differs from plain by {worst} > {K1_TOL}: {json.dumps(errs)}")
     return errs
+
+
+def capture_bn(fn):
+    """Run ``fn`` with the models' ``bn_act`` recording the first call of
+    each (shape, dtype, residual, ReLU, output dtype) it is given: returns
+    (fn's result, the recorded argument tuples)."""
+    import torch
+
+    from chessvision_tpu_torch.models import layers
+
+    real = layers.bn_act
+    calls: dict = {}
+
+    def recording(x, mean, mul, bias, residual=None, relu=False, out_dtype=torch.float32):
+        key = (tuple(x.shape), x.dtype, residual is not None, relu, out_dtype)
+        calls.setdefault(key, (x, mean, mul, bias, residual, relu, out_dtype))
+        return real(x, mean, mul, bias, residual, relu, out_dtype)
+
+    layers.bn_act = recording
+    try:
+        result = fn()
+    finally:
+        layers.bn_act = real
+    return result, list(calls.values())
+
+
+def bn_bits(t):
+    """A tensor's bits in NCHW order (NaN payloads included)."""
+    import torch
+
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_bn(bnk, args: tuple) -> float:
+    """``bn_act`` against ``bn_act_plain`` on one call's arguments: fails
+    unless every bit of the result is equal; returns max |kernel − plain|
+    (0.0 when equal)."""
+    import torch
+
+    got, want = bnk.bn_act(*args), bnk.bn_act_plain(*args)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(bn_bits(got), bn_bits(want)):
+        diff = (got.float() - want.float()).abs().nan_to_num(nan=float("inf")).max()
+        x = args[0]
+        fail(f"bn_act differs from its plain version on {tuple(x.shape)} {x.dtype} stride {x.stride()} "
+             f"(residual {args[4] is not None}, relu {args[5]}, out {args[6]}): max |diff| {float(diff)}")
+    return 0.0
+
+
+def bn_edge_cases(seed: int) -> dict:
+    """Seeded inputs the models do not give ``bn_act``: NaN and ±Inf, 13
+    channels and a 37×41 map (a ragged last group of 8), a transposed view
+    with a transposed residual, a channels-last map beside an NCHW
+    residual, and a view 4 bytes off its storage's start (not 16-byte
+    aligned); each in bf16 and float32, with and without residual and
+    ReLU, into bf16 and float32.  Returns {name: [argument tuples]}."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return (3 * torch.randn(shape, generator=g)).cuda()
+
+    special = randn(4, 16, 32, 32)
+    flat = special.view(-1)
+    flat[::97], flat[5::101], flat[7::103] = float("nan"), float("inf"), -float("inf")
+    maps = {
+        "nan/inf": (special, randn(4, 16, 32, 32)),
+        "13 channels 37x41": (randn(3, 13, 37, 41), randn(3, 13, 37, 41)),
+        "transposed": (randn(2, 24, 40, 48).transpose(2, 3), randn(2, 24, 40, 48).transpose(2, 3)),
+        "channels_last": (randn(4, 24, 16, 16).to(memory_format=torch.channels_last), randn(4, 24, 16, 16)),
+        "unaligned": (randn(1 + 2 * 8 * 8 * 8), randn(2, 8, 8, 8)),
+    }
+    cases: dict = {}
+    for name, (x, res) in maps.items():
+        c = res.shape[1]
+        mean, bias = randn(c), randn(c)
+        mul = torch.rsqrt(torch.rand(c, generator=g).cuda() + 0.2 + 1e-5) * (torch.rand(c, generator=g).cuda() + 0.5)
+        cases[name] = []
+        for dt in (torch.bfloat16, torch.float32):
+            # .to keeps a dense view's strides; the unaligned map is cut after the cast
+            xd = x.to(dt)[1:].view(res.shape) if name == "unaligned" else x.to(dt)
+            cases[name] += [(xd, mean, mul, bias, r, relu, out) for r in (None, res) for relu in (False, True)
+                            for out in (torch.bfloat16, torch.float32)]
+    return cases
+
+
+def time_bn(bnk, args: tuple, bn) -> dict:
+    """Times (ms, CUDA events) of ``bn_act`` on one call's arguments beside
+    its plain version, the PyTorch yardstick (``F.batch_norm`` in float32 on
+    the running statistics of ``bn``, ``F.relu``, then the cast: the eager
+    path the kernel replaced) and its bound: each element read once (and
+    the residual), each output written once, the three channel arrays, at
+    the data sheet's memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from chessvision_tpu_torch.tools.microbench import event_ms
+
+    x, mean, mul, bias, residual, relu, out_dtype = args
+
+    def library():
+        y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
+        if residual is not None:
+            y = y + residual
+        return (F.relu(y) if relu else y).to(out_dtype)
+
+    n = x.numel()
+    io_bytes = n * x.element_size() + n * torch.empty((), dtype=out_dtype).element_size() + 3 * 4 * x.shape[1]
+    if residual is not None:
+        io_bytes += 4 * residual.numel()
+    with torch.inference_mode():
+        res = {
+            "shape": list(x.shape), "in": str(x.dtype), "out": str(out_dtype), "residual": residual is not None,
+            "relu": relu, "ms": event_ms(lambda: bnk.bn_act(*args), iters=20),
+            "plain_ms": event_ms(lambda: bnk.bn_act_plain(*args), iters=5),
+            "library_ms": event_ms(library, iters=5), "bytes": io_bytes,
+            "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+    return res
 
 
 def seeded_quads(seed: int):
@@ -2699,7 +2844,7 @@ def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
     counted and the first call of each shape it hands K1 recorded:
     ``bench_torch.py`` (B=128, iters 6), ``profile_stages`` (B=128),
     ``bench_training`` (both trainers), ``sweep_arbitrate_chunk`` at chunks
-    128 and 512 (B=512), ``microbench --which all`` and ``mfu_accounting``
+    128 and 512 (B=1024), ``microbench --which all`` and ``mfu_accounting``
     on the times those printed.  Each must print its JSON line(s) with
     its keys and the card's name and power limit; the bench's last FENs
     equal ``process_batch``'s on its frames and found boards; the sweep's
@@ -2763,9 +2908,8 @@ def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
     (res["profile_stages"],) = call("profile_stages", profile_stages.main, ["--batch-size", "128"], 1, STAGE_KEYS)
     unet, cls = call("bench_training", bench_training.main, [], 2, TRAIN_KEYS)
     res["bench_training"] = [unet, cls]
-    # B=1024 needs ~75 GB at its peak (the UNet's float32 BatchNorm maps) and ran out of memory in
-    # a process of its own on the 80 GB card; 512 is the batch the bench's compute probe settles at
-    sweeps = [call("sweep_arbitrate_chunk", sweep_arbitrate_chunk.main, ["--batch", "512", "--chunk", str(c)], 1,
+    # at the default B=1024, which phase 20 (b) holds to run without an error
+    sweeps = [call("sweep_arbitrate_chunk", sweep_arbitrate_chunk.main, ["--chunk", str(c)], 1,
                    SWEEP_KEYS)[0] for c in (128, 512)]
     if len({(s["boards_found"], s["fens_sha256"]) for s in sweeps}) != 1 or not sweeps[0]["boards_found"]:
         fail(f"measure: the sweep's found boards and FENs differ across chunks: {sweeps}")
@@ -2786,6 +2930,147 @@ def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
     res["seconds"]["phase"] = time.perf_counter() - t_phase
     log(f"[measure] K1 launches {launches} in the tools {res['launches']}, {len(res['errors'])} recorded calls held against the plain "
         f"version, max |kernel - plain| {res['max_abs_err']}; phase {res['seconds']['phase']:.1f} s")
+    return launches, res
+
+
+LOADTEST_KEYS = ("mode", "requests", "concurrency", "req_per_sec", "p50_ms", "p95_ms", "wall_s", "image", "fen",
+                 "device", "power_limit_w")
+
+
+def phase_memory(k1, cv, card: str, seed: int, sweeps: list[dict]) -> tuple[int, dict]:
+    """Phase 20, after phase 19's bench streams in this process: (a)
+    ``run_device`` at B=1024 (``tools/memory_peaks``: the peak through the
+    UNet and after the tail) with ``found`` flags and FENs equal to two
+    B=512 calls, each peak printed, then B=128 for the table; (b) phase
+    19's sweep at the default B=1024, chunks 128 and 512, ran without an
+    error; (c) ``tools/loadtest_server`` at 32 requests, 1 and then 16 at a
+    time (the tool holds every served FEN to ``process_batch``'s); (d)
+    ``tools/make_hard_example_weights`` on a seeded synthetic squares root,
+    then one ``train_classifier`` epoch with ``use_sample_weights`` that
+    must read the column it wrote.  Returns K1's launches and the records."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from chessvision_tpu_torch import constants
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.synthetic import board_frames, write_squares_dataset
+    from chessvision_tpu_torch.tools import loadtest_server, make_hard_example_weights, memory_peaks
+    from chessvision_tpu_torch.train import tables, train_classifier
+
+    t_phase = time.perf_counter()
+    res: dict = {"seconds": {}}
+    launches = 0
+    engine = cv.engine
+
+    # (a) B=1024 against two B=512 calls
+    k1.launches = 0
+    frames = torch.from_numpy(board_frames(seed, 32)[0]).cuda()
+    rec1024, out1024 = memory_peaks.peaks(engine, frames, 1024)
+    log(f"[memory] {card}: run_device B=1024 after the bench's streams: {json.dumps(rec1024)}")
+    if out1024 is None:
+        fail(f"memory: run_device at B=1024 ran out of memory: {rec1024}")
+    halves = []
+    for i in range(2):
+        rec, out = memory_peaks.peaks(engine, frames, 512)
+        log(f"[memory] {card}: run_device B=512 ({'first' if i == 0 else 'second'} half): {json.dumps(rec)}")
+        if out is None:
+            fail(f"memory: run_device at B=512 ran out of memory: {rec}")
+        halves.append((rec, out))
+    found1024 = out1024["found"].cpu().numpy()
+    found512 = np.concatenate([out["found"].cpu().numpy() for _, out in halves])
+    fens1024 = fens_of(engine_mod, constants, out1024)
+    fens512 = [f for _, out in halves for f in fens_of(engine_mod, constants, out)]
+    if not ((found1024 == found512).all() and fens1024 == fens512 and found1024.any()):
+        fail(f"memory: B=1024 gives other found flags or FENs than two B=512 calls "
+             f"({int(found1024.sum())} / {int(found512.sum())} found)")
+    del out1024, halves
+    rec128, out128 = memory_peaks.peaks(engine, frames, 128)
+    log(f"[memory] {card}: run_device B=128: {json.dumps(rec128)}")
+    torch.cuda.synchronize()
+    launches += k1.launches
+    res["peaks"] = {"1024": rec1024, "512": rec, "128": rec128}
+    res["found_1024"] = int(found1024.sum())
+    del out128
+    res["seconds"]["a"] = time.perf_counter() - t_phase
+
+    # (b) the sweep at B=1024 (phase 19)
+    bad = [s for s in sweeps if s["batch"] != 1024 or "error" in s]
+    if bad:
+        fail(f"memory: the sweep did not run at B=1024 without an error: {bad}")
+    res["sweep_peaks_gb"] = [s["peak_memory_gb"] for s in sweeps]
+    log(f"[memory] sweep at B=1024, chunks 128 and 512: {[s['boards_per_sec'] for s in sweeps]} boards/s, "
+        f"peaks {res['sweep_peaks_gb']} GB, no error")
+
+    # (c) the load test, one request at a time and 16 at once
+    t0 = time.perf_counter()
+    res["loadtest"] = []
+    for conc in (1, 16):
+        buf = io.StringIO()
+        k1.launches = 0
+        with contextlib.redirect_stdout(buf):
+            rc = loadtest_server.main(["--requests", "32", "--concurrency", str(conc)])
+        torch.cuda.synchronize()
+        launches += k1.launches
+        recs = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+        if rc != 0 or len(recs) != 1 or any(k not in recs[0] for k in LOADTEST_KEYS) or not recs[0]["fen"]:
+            fail(f"memory: loadtest_server --concurrency {conc} returned {rc}: {buf.getvalue()[-2000:]}")
+        log(f"[memory] loadtest_server: {json.dumps(recs[0])}")
+        res["loadtest"].append(recs[0])
+    res["seconds"]["c"] = time.perf_counter() - t0
+
+    # (d) hard-example weights, then an epoch that reads them
+    t0 = time.perf_counter()
+    saved_env = {k: os.environ.get(k) for k in ("CVTPU_DATA_ROOT", "CVTPU_STORE_ROOT")}
+    read: list = []
+    real_read = tables.sample_weights_for_ids
+
+    def reading(table, ids):
+        w = real_read(table, ids)
+        read.append(w)
+        return w
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-weights-") as root:
+        data_root = os.path.join(root, "data")
+        os.environ["CVTPU_DATA_ROOT"] = data_root
+        os.environ["CVTPU_STORE_ROOT"] = os.path.join(root, "store")
+        tables.sample_weights_for_ids = reading
+        try:
+            write_squares_dataset(data_root, 40, 10, seed)
+            buf = io.StringIO()
+            k1.launches = 0
+            with contextlib.redirect_stdout(buf):
+                rc = make_hard_example_weights.main(["--data-root", data_root])
+            lines = buf.getvalue().splitlines()
+            for line in lines:
+                log(f"[memory] make_hard_example_weights: {line}")
+            if rc != 0 or not lines or not lines[0].startswith("wrote sample_weight to "):
+                fail(f"memory: make_hard_example_weights returned {rc}: {lines}")
+            column = tables.get_or_create_classification_tables()["train"]["sample_weight"]
+            run, _ = train_classifier.train_model(run_name="smoke-hard-weights", model_dtype=torch.bfloat16,
+                                                  device="cuda", seed=seed, epochs=1, batch_size=256, width=64,
+                                                  augment=True, use_sample_weights=True)
+            torch.cuda.synchronize()
+            launches += k1.launches
+            losses = [s["train_loss"] for s in run.scalars() if "train_loss" in s]  # read before the store goes
+        finally:
+            tables.sample_weights_for_ids = real_read
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    if len(read) != 1 or read[0] is None or not np.allclose(np.sort(read[0]), np.sort(column)):
+        fail(f"memory: the --use-sample-weights epoch did not read the written column ({len(read)} reads)")
+    if len(losses) != 1 or not np.isfinite(losses).all():
+        fail(f"memory: the weighted epoch's loss is not finite: {losses}")
+    res["hard_weights"] = {"line": lines[0], "weights_min": float(column.min()), "weights_max": float(column.max()),
+                           "epoch_loss": losses[0]}
+    res["seconds"]["d"] = time.perf_counter() - t0
+    res["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"[memory] the weighted epoch read {len(read[0])} weights in [{read[0].min():.3f}, {read[0].max():.3f}], "
+        f"loss {losses[0]:.4f}; phase {res['seconds']['phase']:.1f} s, K1 launches {launches}")
     return launches, res
 
 
@@ -2827,6 +3112,8 @@ def main() -> int:
     from chessvision_tpu_torch import constants, cuda_build, profiling
     from chessvision_tpu_torch import engine as engine_mod
     from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.models.layers import BatchNorm2d
+    from chessvision_tpu_torch.ops import bn_act as bnk
     from chessvision_tpu_torch.ops import hat_resample as k1
     from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
     from chessvision_tpu_torch.synthetic import board_frames, limit_chroma
@@ -2890,10 +3177,19 @@ def main() -> int:
     torch.cuda.synchronize()
 
     k1.launches = 0
+    bnk.launches = 0
     single = cv.process_image(frames8[0])
-    res8, calls8 = capture_k1(k1, lambda: engine.process_batch(frames8))
+    (res8, calls8), bn_calls8 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8)))
     torch.cuda.synchronize()
     launches = k1.launches
+    bn_by_path = {"main": bnk.launches}
+    # bn_act once a BatchNorm layer of the UNet, twice of the ResNet18 (the two arbitrate passes)
+    n_bn = sum(isinstance(m, BatchNorm2d) for m in engine._extractor.modules()) + 2 * sum(
+        isinstance(m, BatchNorm2d) for m in engine._classifier.modules())
+    log(f"[main] bn_act launches over process_image + process_batch: {bnk.launches} "
+        f"({len(bn_calls8)} distinct calls in process_batch)")
+    if bnk.launches != 2 * n_bn:
+        raise SystemExit(f"FAIL: expected {2 * n_bn} bn_act launches ({n_bn} a pipeline call), got {bnk.launches}")
     log(f"[main] process_image found={single.board_extraction.quadrangle is not None} "
         f"fen={single.position.fen if single.position else ''!r}")
     log(f"[main] process_batch B=8 found={res8.board_found.tolist()} fens={res8.fens}")
@@ -2918,7 +3214,7 @@ def main() -> int:
     if lite.fens != res8.fens:
         raise SystemExit("FAIL: lite FENs differ from full FENs")
 
-    # -- 3. the same batch through the plain warp --------------------------------------------
+    # -- 3. the same batch through the plain versions of K1 and bn_act ------------------------
     res_plain = with_plain_k1(k1, lambda: engine.process_batch(frames8))
     board_diff = np.abs(res_plain.board_image.astype(int) - res8.board_image.astype(int))
     prob_diff = float(np.abs(res_plain.probabilities - res8.probabilities).max())
@@ -2953,12 +3249,14 @@ def main() -> int:
     frames128 = np.concatenate([uniq] * (-(-bsz // len(uniq))))[:bsz]
     engine.process_batch(frames128)  # warm-up at this batch
     k1.launches = 0
-    res128, calls128 = capture_k1(k1, lambda: engine.process_batch(frames128))
+    bnk.launches = 0
+    (res128, calls128), bn_calls128 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128)))
     torch.cuda.synchronize()
     launches128 = k1.launches
-    log(f"[main] K1 launches over process_batch B={bsz}: {launches128}")
-    if launches128 != 2:
-        raise SystemExit(f"FAIL: expected 2 K1 launches at B={bsz}, got {launches128}")
+    bn_by_path["main"] += bnk.launches
+    log(f"[main] K1 launches over process_batch B={bsz}: {launches128}; bn_act {bnk.launches}")
+    if launches128 != 2 or bnk.launches != n_bn:
+        raise SystemExit(f"FAIL: expected 2 K1 and {n_bn} bn_act launches at B={bsz}, got {launches128}, {bnk.launches}")
     warp128 = calls128["warp_twopass"][0]
     errs[f"B={bsz}"] = check_k1(k1, *warp128)
     log(f"[k1] max |kernel - plain| by case and entry: {json.dumps(errs)}")
@@ -2977,6 +3275,33 @@ def main() -> int:
         f"({k1_128['library_with_positions_ms']:.3f} with building them); a device-to-device copy "
         f"reaches {k1_128['copy_tb_per_s']:.2f} TB/s of the {HBM_BYTES_PER_S / 1e12:.2f} the bounds assume")
     del calls8, calls128, warp128
+
+    # bn_act against its plain version, bit for bit: every call shape of the bf16 models at B=8 and
+    # B=128 and of the float32 models at B=8, then the seeded edge cases
+    cv32 = ChessVision(device="cuda", dtype=torch.float32)
+    _, bn_calls32 = capture_bn(lambda: cv32.engine.process_batch(frames8))
+    bn_cases = {"B=8 bfloat16": bn_calls8, f"B={bsz} bfloat16": bn_calls128, "B=8 float32": bn_calls32,
+                **bn_edge_cases(args.seed)}
+    for case in bn_cases.values():
+        for a in case:
+            check_bn(bnk, a)
+    bn_checked = {k: len(v) for k, v in bn_cases.items()}
+    log(f"[bn_act] equal to its plain version in every bit on {sum(bn_checked.values())} inputs: "
+        f"{json.dumps(bn_checked)}")
+
+    def bn_module(a):
+        mods = (*engine._extractor.modules(), *engine._classifier.modules())
+        return next(m for m in mods if isinstance(m, BatchNorm2d) and m.running_mean is a[1])
+
+    # the UNet's first layer (inc.bn1: bf16 in and out, ReLU) and a ResNet18 block (bn2 + residual + ReLU)
+    bn_times = {"unet_inc": time_bn(bnk, bn_calls128[0], bn_module(bn_calls128[0]))}
+    block = next(a for a in bn_calls128 if a[4] is not None)
+    bn_times["resnet_block"] = time_bn(bnk, block, bn_module(block))
+    for name, t in bn_times.items():
+        log(f"[bn_act] B={bsz} {name} {json.dumps(t)}: kernel {t['ms']:.4f} ms against its bound "
+            f"{t['bound_ms']:.4f} ms ({100 * t['bound_ms'] / t['ms']:.1f}%), plain {t['plain_ms']:.4f} ms, "
+            f"F.batch_norm + F.relu + cast {t['library_ms']:.4f} ms")
+    del bn_calls8, bn_calls32, bn_calls128, bn_cases, block
 
     # -- 5. numbers ---------------------------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -3018,38 +3343,58 @@ def main() -> int:
                 f"({100 * busy / wall:.1f}%), top ops by device time\n{table}")
 
     # -- 6–9. the serving path -------------------------------------------------------------------
-    phase_codecs(engine, engine_mod, constants, frames8, limit_chroma(frames8))
-    launches_stream, errs_stream = phase_stream(engine, engine_mod, k1, frames128, args.profile)
-    launches_yolo, errs_yolo = phase_yolo(k1, frames8)
-    launches_server, errs_server = phase_server(k1, frames8)
+    def counted(path: str, fn):
+        """``fn()`` with bn_act's count zeroed just before and read just after."""
+        bnk.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        bn_by_path[path] = bnk.launches
+        return out
+
+    counted("codecs", lambda: phase_codecs(engine, engine_mod, constants, frames8, limit_chroma(frames8)))
+    launches_stream, errs_stream = counted("stream", lambda: phase_stream(engine, engine_mod, k1, frames128,
+                                                                          args.profile))
+    launches_yolo, errs_yolo = counted("yolo", lambda: phase_yolo(k1, frames8))
+    launches_server, errs_server = counted("server", lambda: phase_server(k1, frames8))
     errs_serving = {**errs_stream, **errs_yolo, **errs_server}
     log(f"[k1] max |kernel - plain| on the serving paths' inputs: {json.dumps(errs_serving)}")
     worst = max(worst, *(e for case in errs_serving.values() for e in case.values()))
 
     # -- 10–12. augmentation, training, evaluation --------------------------------------------
-    launches_augment, errs_augment, k1_augment = phase_augment(k1, args.seed)
+    launches_augment, errs_augment, k1_augment = counted("augment", lambda: phase_augment(k1, args.seed))
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
-        launches_train, train_results = phase_train(k1, args.seed, root, frames8, args.profile)
-        launches_eval, agg12 = phase_eval(k1, args.seed, root)
+        launches_train, train_results = counted("train", lambda: phase_train(k1, args.seed, root, frames8,
+                                                                             args.profile))
+        launches_eval, agg12 = counted("eval", lambda: phase_eval(k1, args.seed, root))
         # -- 13–14. data parallelism, the data tools --------------------------------------------------
-        launches_parallel, parallel = phase_parallel(k1, args.seed, root, res128, frames8)
-        launches_data, data_res = phase_data(k1, args.seed, root, frames128)
+        launches_parallel, parallel = counted("parallel", lambda: phase_parallel(k1, args.seed, root, res128, frames8))
+        launches_data, data_res = counted("data", lambda: phase_data(k1, args.seed, root, frames128))
         # -- 15. the launchers ---------------------------------------------------------------------
-        launches_launchers, launchers = phase_launchers(k1, args.seed, root, card, frames8, agg12)
+        launches_launchers, launchers = counted("launchers", lambda: phase_launchers(k1, args.seed, root, card,
+                                                                                     frames8, agg12))
         # -- 16. across cards ------------------------------------------------------------------------
         by_card, multicard = {}, None
         if cards:
-            by_card, multicard = phase_multicard(k1, args.seed, root, cards, card, res128)
+            by_card, multicard = counted("multicard", lambda: phase_multicard(k1, args.seed, root, cards, card,
+                                                                              res128))
         else:
             log(f"[multicard] phase 16 needs --cards N or a machine with two or more cards; this one shows "
                 f"{n_cards}: not run")
     # -- 17. camera-size photos ---------------------------------------------------------------------
-    launches_photos, photos = phase_photos(k1, cv, args.seed)
+    launches_photos, photos = counted("photos", lambda: phase_photos(k1, cv, args.seed))
     # -- 18. an empty batch and the environment ------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
-        launches_edges, edges = phase_edges(k1, cv, args.seed, root)
+        launches_edges, edges = counted("edges", lambda: phase_edges(k1, cv, args.seed, root))
     # -- 19. the measuring tools --------------------------------------------------------------------
-    launches_measure, measure = phase_measure(k1, cv, card)
+    launches_measure, measure = counted("measure", lambda: phase_measure(k1, cv, card))
+    # -- 20. memory at B=1024, the load test, hard-example weights ------------------------------------
+    launches_memory, memory = counted("memory", lambda: phase_memory(k1, cv, card, args.seed, measure["sweep"]))
+    # every path that runs the UNet or the ResNet18 in this process (the YOLO pair keeps its eager
+    # BatchNorm + SiLU, augmentation runs no model, the parallel and multicard ranks are processes of their own)
+    idle = [p for p, n in bn_by_path.items() if n == 0 and p not in ("yolo", "augment", "parallel", "multicard")]
+    log(f"[bn_act] launches by path: {json.dumps(bn_by_path)}")
+    if idle:
+        fail(f"bn_act never launched on the paths {idle}")
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
                 photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
@@ -3060,11 +3405,10 @@ def main() -> int:
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
         f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}, "
-        f"measure {launches_measure}")
+        f"measure {launches_measure}, memory {launches_memory}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
-    cv32 = ChessVision(device="cuda", dtype=torch.float32)
     res32 = cv32.engine.process_batch(frames8)
     agree = sum(a == b for a, b in zip(res32.fens, res8.fens))
     log(f"[f32] found equal={bool((res32.board_found == res8.board_found).all())}, "
@@ -3077,7 +3421,8 @@ def main() -> int:
         "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
         "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
                      + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
-                     + launches_photos + launches_edges + launches_measure + sum(by_card.values())),
+                     + launches_photos + launches_edges + launches_measure + launches_memory
+                     + sum(by_card.values())),
         "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
         "ms": k1_128["ms"],
         "plain_ms": k1_128["plain_ms"],
@@ -3091,6 +3436,25 @@ def main() -> int:
                                                   "pass2_bound_ms", "pass1_plan", "shape")}
                          for name, t in photos["k1"].items()},
     }]
+    t = bn_times["unet_inc"]
+    kernels.append({
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "chessvision_tpu_torch/csrc/bn_act.cu",
+        "replaces": "none: no TPU kernel; XLA's fusion of Flax's BatchNorm, ReLU and the cast "
+                    "(chessvision_tpu/models/unet.py:31, chessvision_tpu/models/resnet.py:26)",
+        "launches": sum(bn_by_path.values()),
+        "max_abs_err": 0.0,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": t["library_ms"],
+        "launches_by_path": bn_by_path,
+        "shapes": bn_times,
+        "checked_inputs": bn_checked,
+    })
+    log(f"[memory] summary {json.dumps(memory)}")
     if multicard:
         kernels[0].update(launches_by_card=by_card, multicard_shapes=multicard["k1"]["times"])
         log(f"[multicard] summary {json.dumps({k: v for k, v in multicard.items() if k != 'binding'})}")

@@ -587,3 +587,75 @@ def test_microbench_reports_k1_exact_and_mfu_accounting_on_the_card(capsys) -> N
                                                "--compute-boards-per-sec", "900"], capsys)
     assert mfu["backend"] == "cuda" and [r["peak_share"] > 0 for r in mfu["rows"]] == [True] * 4
     assert mfu["rows"][3]["bound_ms"] == pytest.approx(rec["warp_bound_ms"], rel=1e-12)  # one floor, one input
+
+
+def _bn_args(shape, in_dtype, residual: bool, relu: bool, out_dtype, layout: str = "nchw"):
+    g = torch.Generator().manual_seed(sum(shape))
+    c = shape[1]
+    x = 3 * torch.randn(shape, generator=g)
+    if c % 8:  # the odd map also carries NaN and ±Inf
+        x.view(-1)[::97], x.view(-1)[5::101], x.view(-1)[7::103] = float("nan"), float("inf"), -float("inf")
+    res = torch.randn(shape, generator=g) if residual else None
+    mean, bias = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    mul = torch.rsqrt(torch.rand(c, generator=g) + 0.2) * (torch.rand(c, generator=g) + 0.5)
+    x = x.cuda().to(in_dtype)
+    if layout == "channels_last":
+        x = x.to(memory_format=torch.channels_last)
+    elif layout == "transposed":
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    return (x, mean.cuda(), mul.cuda(), bias.cuda(), None if res is None else res.cuda(), relu, out_dtype)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "transposed"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32], ids=["bf16_in", "f32_in"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("residual", [False, True], ids=["", "residual"])
+def test_bn_act_kernel_equals_plain_bit_for_bit(layout, in_dtype, out_dtype, residual) -> None:
+    """bn_act at a UNet-like map (32 channels), an odd one (13 channels,
+    37×41: a ragged last group of 8) and with NaN and ±Inf, in every
+    layout the wrapper takes: the plain version's bits."""
+    _need_card()
+    from chessvision_tpu_torch.ops import bn_act
+
+    for shape in ((2, 32, 64, 64), (3, 13, 37, 41)):
+        for relu in (False, True):
+            args = _bn_args(shape, in_dtype, residual, relu, out_dtype, layout)
+            before = bn_act.launches
+            got = bn_act.bn_act(*args)
+            torch.cuda.synchronize()
+            assert bn_act.launches == before + 1
+            want = bn_act.bn_act_plain(*args)
+            assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+            bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), (shape, relu)
+
+
+def test_bn_act_kernel_on_an_empty_map_launches_nothing() -> None:
+    _need_card()
+    from chessvision_tpu_torch.ops import bn_act
+
+    args = _bn_args((2, 8, 4, 4), torch.bfloat16, False, True, torch.bfloat16)
+    before = bn_act.launches
+    out = bn_act.bn_act(args[0][:0], *args[1:])
+    assert out.shape == (0, 8, 4, 4) and bn_act.launches == before
+
+
+def test_run_device_at_b1024_fits_and_equals_two_b512_calls() -> None:
+    """The JAX package's batch: run_device on 1024 frames on the card, with
+    the found flags and FENs of two calls of 512."""
+    _need_card()
+    from chessvision_tpu_torch import constants
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+    from chessvision_tpu_torch.tools import memory_peaks
+    from chessvision_tpu_torch.tools.bench import assemble_fens
+
+    engine = ChessVision(device="cuda").engine
+    frames = torch.from_numpy(board_frames(0, 32)[0]).cuda()
+    rec, whole = memory_peaks.peaks(engine, frames, 1024)
+    assert whole is not None, rec
+    assert 0 < rec["unet_peak_gb"] <= rec["peak_gb"] < 80
+    halves = [memory_peaks.peaks(engine, frames, 512)[1] for _ in range(2)]
+    names = constants.SQUARE_NAMES_NORMAL
+    assert torch.equal(whole["found"].cpu(), torch.cat([h["found"] for h in halves]).cpu())
+    assert assemble_fens(whole, names) == assemble_fens(halves[0], names) + assemble_fens(halves[1], names)
