@@ -17,8 +17,15 @@
 //
 // Two entries:
 //
-// 1. warp_pass1_launch + warp_pass2_launch, the main path: the whole warp
-//    from the images and the inverse homographies, in two kernels.
+// 1. The whole warp from the images and the inverse homographies, by one
+//    of two routes that the caller picks from the shapes alone
+//    (ops/hat_resample.py:warp_plan): warp_pass1_launch + warp_pass2_launch
+//    (the two-pass route: the main path's 512^2 frames and the training
+//    augmentations), or warp_fused_launch (the fused route: frames that the
+//    warp shrinks, the camera photos users send).  Both give the same
+//    floats.
+//
+//    The two-pass route, in two kernels.
 //    Bound: device-memory bytes.  The function itself reads the images
 //    and writes the boards; this two-kernel design also writes and reads
 //    the intermediate once, and nothing else.  The positions never touch
@@ -47,6 +54,33 @@
 //      block covers a 32 u x TILE_V v tile; for a rotated board
 //      floor(vy) steps along u, so one warp's taps touch several rows,
 //      and the other warps of the block find those rows in L1.
+//
+//    The fused route, one kernel (warp_fused_kernel).  At a camera frame
+//    (12-48 MP into the 576^2 canvas) the warp shrinks the frame 5-10x
+//    along each axis: the taps touch 9-25% of the frame's bytes, and pass
+//    2 reads at most two rows of the intermediate for each output, so
+//    staging whole source rows (pass 1) and writing every row of the
+//    intermediate move 4-11x the function's bytes.  Here each thread
+//    owns outputs (b, v, u), threads running along u so that stores are
+//    contiguous, and computes each one from the source directly: the
+//    pass-2 tap at vy(u, v) names at most two rows r of the intermediate;
+//    for each row whose tap lies inside the frame it computes hx(u, r),
+//    the pass-1 tap, and reads that tap's two source floats through
+//    __ldg; then the two pass-1 sums and the pass-2 sum, with the same
+//    __f*_rn operations in the same order as the two kernels, so the
+//    floats are the two-pass floats.  A tap outside the frame is never
+//    loaded.  Each thread first computes every position of its
+//    TILE_PER_THREAD outputs, then issues all their loads, then sums and
+//    stores, so that up to 4 * TILE_PER_THREAD loads are in flight.
+//    Bound: device-memory bytes, and of the function's own kind: the
+//    32-byte source sectors the taps touch plus the canvas written
+//    (tools/flops.py:tap_sector_bytes; 11-19 MB a camera frame).
+//    Neighbouring outputs share their sectors through L1 and L2.  No
+//    shared-memory staging: the reads are a sparse gather, which the
+//    load path serves by the sector, while a staged row is read whole.
+//    The price is arithmetic: five __fdiv_rn an output where the two
+//    passes spend 2 * h / out_h + 1, which is why frames the warp does
+//    not shrink (512^2 into 576^2, 128 at a time) stay two-pass.
 //
 // 2. hat_resample_launch: the TPU kernel's own signature, positions given
 //    in memory.  Bound: device-memory bytes (one position read, one
@@ -260,6 +294,49 @@ __global__ void warp_pass2_kernel(const float* __restrict__ tmp,
   }
 }
 
+// The fused route: out[b, v, u] = pass 2's hat sum at vy(u, v) over the
+// rows r of the intermediate it reads, each computed here as pass 1 would,
+// the hat sum of source row (b, r) at hx(u, r).  imgs (b, h, w), out
+// (b, out_h, out_w); grid and block as pass 2's.
+__global__ void __launch_bounds__(TILE_U* TILE_WARPS)
+    warp_fused_kernel(const float* __restrict__ imgs, const float* __restrict__ minv, float* __restrict__ out,
+                      int h, int w, int out_h, int out_w) {
+  const int b = blockIdx.z;
+  const int u = blockIdx.x * TILE_U + threadIdx.x;
+  if (u >= out_w) return;
+  const Homography m = load_homography(minv + (int64_t)b * 9);
+  const float* src = imgs + (int64_t)b * h * w;
+  float* dst = out + (int64_t)b * out_h * out_w + u;
+  const int v0 = blockIdx.y * TILE_V + threadIdx.y;
+  const float us = (float)u;
+  const Tap none = {0, 0, 0.0f, 0.0f, false, false};
+  Tap t[TILE_PER_THREAD];     // pass 2: the rows of the intermediate
+  Tap s[TILE_PER_THREAD][2];  // pass 1: the columns of each of those rows
+#pragma unroll
+  for (int k = 0; k < TILE_PER_THREAD; ++k) {
+    t[k] = tap_at(position_vy(m, us, (float)(v0 + k * TILE_WARPS)), h);
+    s[k][0] = t[k].ok0 ? tap_at(position_hx(m, us, (float)t[k].i0), w) : none;
+    s[k][1] = t[k].ok1 ? tap_at(position_hx(m, us, (float)t[k].i1), w) : none;
+  }
+  float x[TILE_PER_THREAD][2][2];
+#pragma unroll
+  for (int k = 0; k < TILE_PER_THREAD; ++k) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* row = src + (int64_t)(r ? t[k].i1 : t[k].i0) * w;
+      x[k][r][0] = s[k][r].ok0 ? __ldg(row + s[k][r].i0) : 0.0f;
+      x[k][r][1] = s[k][r].ok1 ? __ldg(row + s[k][r].i1) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < TILE_PER_THREAD; ++k) {
+    const int v = v0 + k * TILE_WARPS;
+    const float r0 = tap_sum(s[k][0], x[k][0][0], x[k][0][1]);
+    const float r1 = tap_sum(s[k][1], x[k][1][0], x[k][1][1]);
+    if (v < out_h) dst[(int64_t)v * out_w] = tap_sum(t[k], r0, r1);
+  }
+}
+
 inline unsigned int ceil_div(int64_t a, int64_t b) { return (unsigned int)((a + b - 1) / b); }
 
 }  // namespace
@@ -315,5 +392,17 @@ extern "C" int warp_pass2_launch(const void* tmp, const void* minv, void* out,
   const dim3 grid(ceil_div(out_w, TILE_U), ceil_div(out_h, TILE_V), (unsigned int)b);
   warp_pass2_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)tmp, (const float*)minv, (float*)out, src_h, out_h, out_w);
+  return (int)cudaGetLastError();
+}
+
+// The fused route: imgs (b, h, w) and minv (b, 3, 3) contiguous ->
+// out (b, out_h, out_w) contiguous, in one kernel.
+extern "C" int warp_fused_launch(const void* imgs, const void* minv, void* out,
+                                 int b, int h, int w, int out_h, int out_w, void* stream) {
+  if (b == 0 || out_h == 0 || out_w == 0) return NOTHING_LAUNCHED;
+  const dim3 block(TILE_U, TILE_WARPS);
+  const dim3 grid(ceil_div(out_w, TILE_U), ceil_div(out_h, TILE_V), (unsigned int)b);
+  warp_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const float*)imgs, (const float*)minv, (float*)out, h, w, out_h, out_w);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@
 //
 // - pass2_staged: pass 2 with the tile's rows of the intermediate staged
 //   in shared memory instead of read through L1.
-// - warp_fused: the whole warp in one kernel.  A block takes a 32 u x
+// - warp_slab: the whole warp in one kernel.  A block takes a 32 u x
 //   FUSED_V v tile of the output, finds the rows of the intermediate its
 //   taps need, computes that slab from the source into shared memory, and
 //   resamples it; the intermediate never reaches device memory.  A tile
@@ -97,7 +97,7 @@ __global__ void pass2_staged_kernel(const float* __restrict__ tmp, const float* 
 }
 
 __global__ void __launch_bounds__(TILE_U* TILE_WARPS)
-    warp_fused_kernel(const float* __restrict__ imgs, const float* __restrict__ minv, float* __restrict__ out,
+    warp_slab_kernel(const float* __restrict__ imgs, const float* __restrict__ minv, float* __restrict__ out,
                       int h, int w, int out_h, int out_w) {
   __shared__ float slab[SLAB_ROWS * TILE_U];
   const int b = blockIdx.z;
@@ -153,11 +153,11 @@ extern "C" int pass2_staged_launch(const void* tmp, const void* minv, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int warp_fused_launch(const void* imgs, const void* minv, void* out,
+extern "C" int warp_slab_launch(const void* imgs, const void* minv, void* out,
                                  int b, int h, int w, int out_h, int out_w, void* stream) {
   const dim3 block(TILE_U, TILE_WARPS);
   const dim3 grid(ceil_div(out_w, TILE_U), ceil_div(out_h, FUSED_V), (unsigned int)b);
-  warp_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  warp_slab_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)imgs, (const float*)minv, (float*)out, h, w, out_h, out_w);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
     python -m chessvision_tpu_torch.k1_variants [--seed N] [--batch B]
 
 Builds ``csrc/variants/k1_variants.cu`` (pass 2 with its rows staged in
-shared memory; the whole warp fused into one kernel) beside the kept
+shared memory; the whole warp in one kernel that stages a slab of the
+intermediate in shared memory) beside the kept
 kernels, checks each variant against the kept kernels' output (they must
 be equal), and times all of them by CUDA events on the same seeded inputs:
 ``--batch`` random gray images of 512², warped to the 576² margin canvas
@@ -62,8 +63,8 @@ def main(argv: list[str] | None = None) -> int:
     lib = cuda_build.load("variants/k1_variants")
     i32, ptr = ctypes.c_int, ctypes.c_void_p
     lib.pass2_staged_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    lib.warp_fused_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    lib.pass2_staged_launch.restype = lib.warp_fused_launch.restype = i32
+    lib.warp_slab_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.pass2_staged_launch.restype = lib.warp_slab_launch.restype = i32
 
     b, h, w, out_h, out_w = args.batch, 512, 512, 576, 576
     rng = np.random.default_rng(args.seed)
@@ -83,11 +84,11 @@ def main(argv: list[str] | None = None) -> int:
         def staged():
             return lib.pass2_staged_launch(tmp.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, out_h, out_w, stream)
 
-        def fused():
-            return lib.warp_fused_launch(imgs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w, stream)
+        def slab():
+            return lib.warp_slab_launch(imgs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w, stream)
 
         row = {}
-        for variant, fn in (("pass2_staged", staged), ("warp_fused", fused)):
+        for variant, fn in (("pass2_staged", staged), ("warp_slab", slab)):
             out.zero_()
             if fn() != 0:
                 raise SystemExit(f"{variant}: launch failed")

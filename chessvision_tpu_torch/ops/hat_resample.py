@@ -7,16 +7,24 @@ the same function and the oracle.  The kernels are hand-written CUDA,
 ``csrc/hat_resample.cu``; both entries are bound by device-memory bytes.
 
 - ``warp_twopass``: what the main path calls, the whole two-pass warp from
-  the images and the inverse homographies.  On CUDA tensors it is two
-  kernel launches (``warp_pass1``, ``warp_pass2``) or the call raises.
+  the images and the inverse homographies.  On CUDA tensors it takes the
+  route that ``warp_plan`` names from the shapes alone, and the call
+  raises if its launch fails:
+  - ``"twopass"`` (the main path's 512² frames, the augmentations): two
+    kernel launches (``warp_pass1``, ``warp_pass2``).  Pass 1 stages
+    source rows in shared memory (``pass1_plan``: 8, 4, 2 or 1 rows a
+    block by the width, and rows too wide for any of it read from device
+    memory, so every width runs); pass 2 reads the intermediate's
+    columns in place and writes the result in its final layout.  What
+    moves through device memory is the images, the intermediate (written
+    and read once) and the result.
+  - ``"fused"`` (frames the warp shrinks: the camera photos users send):
+    one launch (``warp_fused``) that computes each output from the four
+    source floats it depends on, reading only its taps' sectors; no
+    intermediate.
   Each thread computes its own sample positions in registers, rounding
   every operation as the plain version's eager ops do, so no position
-  tensor is built or read; pass 1 stages source rows in shared memory
-  (``pass1_plan``: 8, 4, 2 or 1 rows a block by the width, and rows too
-  wide for any of it read from device memory, so every width runs);
-  pass 2 reads the intermediate's columns in place and writes the result
-  in its final layout.  What moves through device memory is the images,
-  the intermediate (written and read once) and the result.
+  tensor is built or read, and both routes give the same floats.
 - ``hat_resample``: the TPU kernel's own signature, positions given.  Not
   on the main path.  On CUDA tensors the kernel reads ``src`` in place
   through its batch, row and element strides (a transposed view needs no
@@ -25,9 +33,13 @@ the same function and the oracle.  The kernels are hand-written CUDA,
   the plain PyTorch versions (positions as tensors; the broadcast
   multiply-reduce of the JAX oracle).  Only CPU tensors take them in the
   wrappers; on the card they are what the kernels are compared with.
-- ``launches``: kernel launches so far (either entry), to show that a run
-  went through the kernels.  A call whose result has no element reaches
-  the launcher, which launches nothing and says so; it does not count.
+  ``warp_fused_plain`` is the fused route's order of operations in plain
+  PyTorch, held against ``warp_twopass_plain`` on the CPU; no wrapper
+  takes it.
+- ``launches``: kernel launches so far (any entry), to show that a run
+  went through the kernels; ``kernel_launches`` the same by kernel.  A
+  call whose result has no element reaches the launcher, which launches
+  nothing and says so; it does not count.
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ import torch
 from chessvision_tpu_torch import cuda_build
 
 launches = 0
+kernel_launches = dict.fromkeys(("warp_pass1", "warp_pass2", "warp_fused", "hat_resample"), 0)
+# the kernels each route of warp_twopass launches
+ROUTE_KERNELS = {"twopass": ("warp_pass1", "warp_pass2"), "fused": ("warp_fused",)}
 
 # rows per block of the plain version: its (rows, J, U) weight buffer is
 # bounded to ~2^26 floats (256 MB) instead of growing with the batch
@@ -51,6 +66,12 @@ _SHARED_BYTES = 232448
 _GRID_Z = 65535
 # a launcher's return when the shape holds no output element
 _NOTHING_LAUNCHED = -1
+# warp_plan: the fused route from frames this many times the canvas's
+# height.  The sweep on an H100 (PERF.md §6): at B=1 the fused kernel wins
+# from height 1024 (1.8× the canvas) up, at B=128 512² (0.9×) the two
+# passes win 2.1×; at B=1 512 the fused kernel would save 4–13 µs, which
+# the rule gives up so that every 512² frame takes one route
+FUSED_MIN_RATIO = 1.5
 
 
 def hat_resample_plain(src: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -75,6 +96,25 @@ def _guard(den: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(den) < 1e-8, torch.full_like(den, 1e-8), den)
 
 
+def _position_hx(minv: torch.Tensor, us: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Pass 1's position hx(u, y) = X(u, v*) with Y(u, v*) = y, for (B, 3, 3)
+    inverse homographies at column ``us`` and source row ``ys`` (broadcast
+    to (B, ...)); one rounded operation at a time, as the kernels'
+    ``position_hx``."""
+    (a_, b_, c_), (d_, e_, f_), (g_, h_, i_) = ([minv[:, r, k][:, None, None] for k in range(3)] for r in range(3))
+    den_v = e_ - ys * h_
+    v_star = (ys * (g_ * us + i_) - d_ * us - f_) / _guard(den_v)
+    den_x = g_ * us + h_ * v_star + i_
+    return (a_ * us + b_ * v_star + c_) / _guard(den_x)
+
+
+def _position_vy(minv: torch.Tensor, us: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """Pass 2's position vy(u, v) = Y(u, v), as the kernels' ``position_vy``."""
+    _, (d_, e_, f_), (g_, h_, i_) = ([minv[:, r, k][:, None, None] for k in range(3)] for r in range(3))
+    den = g_ * us + h_ * vs + i_
+    return (d_ * us + e_ * vs + f_) / _guard(den)
+
+
 def twopass_positions(minv: torch.Tensor, src_h: int, out_h: int, out_w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The two-pass warp's sample positions from (B, 3, 3) inverse
     homographies: ``hx`` (B, src_h, out_w), where pass 1 samples source row
@@ -82,28 +122,11 @@ def twopass_positions(minv: torch.Tensor, src_h: int, out_h: int, out_w: int) ->
     ``vy`` (B, out_w, out_h), where pass 2 samples column u of the
     intermediate for output row v, Y(u, v)."""
     dev = minv.device
-
-    def bc(t: torch.Tensor) -> torch.Tensor:  # (B,) → (B, 1, 1)
-        return t[:, None, None]
-
-    a_, b_, c_ = bc(minv[:, 0, 0]), bc(minv[:, 0, 1]), bc(minv[:, 0, 2])
-    d_, e_, f_ = bc(minv[:, 1, 0]), bc(minv[:, 1, 1]), bc(minv[:, 1, 2])
-    g_, h_, i_ = bc(minv[:, 2, 0]), bc(minv[:, 2, 1]), bc(minv[:, 2, 2])
-
-    # pass-1 positions hx over (B, y=src_h, u=out_w)
     ys = torch.arange(src_h, dtype=torch.float32, device=dev)[:, None].expand(src_h, out_w)
     us = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :].expand(src_h, out_w)
-    den_v = e_ - ys * h_
-    v_star = (ys * (g_ * us + i_) - d_ * us - f_) / _guard(den_v)
-    den_x = g_ * us + h_ * v_star + i_
-    hx = (a_ * us + b_ * v_star + c_) / _guard(den_x)
-
-    # pass-2 positions Y over (B, u=out_w, v=out_h)
     vs = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :].expand(out_w, out_h)
     uu = torch.arange(out_w, dtype=torch.float32, device=dev)[:, None].expand(out_w, out_h)
-    den = g_ * uu + h_ * vs + i_
-    vy = (d_ * uu + e_ * vs + f_) / _guard(den)
-    return hx, vy
+    return _position_hx(minv, us, ys), _position_vy(minv, uu, vs)
 
 
 def warp_twopass_plain(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -113,6 +136,39 @@ def warp_twopass_plain(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w
     tmp = hat_resample_plain(imgs, hx)  # (B, src_h, out_w)
     out_t = hat_resample_plain(tmp.transpose(1, 2), vy)  # (B, out_w, out_h)
     return out_t.transpose(1, 2)
+
+
+def warp_fused_plain(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The fused route's order in plain PyTorch: for each canvas pixel
+    (b, v, u) the two rows r of pass 2's taps at vy(u, v), the hat sum of
+    source row r at hx(u, r) for each, then the hat sum of those two at vy;
+    positions by the elementwise operations of ``twopass_positions``, each
+    tap weighted ``max(0, 1 − |p − j|)`` and zero outside the frame.  Equal
+    to ``warp_twopass_plain``: at most two terms of each of its sums are
+    nonzero, and these are they."""
+    b, src_h, src_w = imgs.shape
+    dev = imgs.device
+    vs = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None].expand(out_h, out_w)
+    us = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :].expand(out_h, out_w)
+    flat = imgs.reshape(b, src_h * src_w).float()
+
+    def taps(p: torch.Tensor, n: int):
+        """The two taps of positions ``p`` along an axis of ``n``: each
+        index (clamped into range for the gather) and its weight, 0 where
+        the tap lies outside."""
+        f = torch.floor(p)
+        for j in (f, f + 1.0):
+            wgt = torch.clamp_min(1.0 - torch.abs(p - j), 0.0)
+            inside = (j >= 0) & (j < n)
+            yield torch.where(inside, j, 0.0).long(), torch.where(inside, wgt, 0.0)
+
+    out = torch.zeros((b, out_h, out_w), dtype=torch.float32, device=dev)
+    for r, w2 in taps(_position_vy(minv, us, vs), src_h):
+        row = torch.zeros_like(out)
+        for col, w1 in taps(_position_hx(minv, us, r.float()), src_w):
+            row = row + w1 * torch.gather(flat, 1, (r * src_w + col).reshape(b, out_h * out_w)).reshape(b, out_h, out_w)
+        out = out + w2 * row
+    return out
 
 
 def _kernel(name: str, argtypes: list):
@@ -133,6 +189,15 @@ def _run(fn, name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches += 1
+    kernel_launches[name] += 1
+
+
+def zero_launches() -> None:
+    """Set ``launches`` and every count of ``kernel_launches`` to 0."""
+    global launches
+    launches = 0
+    for name in kernel_launches:
+        kernel_launches[name] = 0
 
 
 def _launch(src: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -225,13 +290,42 @@ def warp_pass2(tmp: torch.Tensor, minv: torch.Tensor, out_h: int) -> torch.Tenso
     return out
 
 
+def warp_fused(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """The fused route on the card: (B, H, W) images warped by (B, 3, 3)
+    inverse homographies straight to (B, out_h, out_w).  One kernel
+    launch."""
+    _check_warp(imgs, minv)
+    b, h, w = imgs.shape
+    if max(h * w, out_h * out_w) >= 2**31 or b > _GRID_Z:
+        raise ValueError(f"warp_twopass kernel: shape {(b, h, w, out_h, out_w)} over the kernel's index limits")
+    if not (imgs.is_cuda and imgs.is_contiguous() and minv.is_contiguous()):
+        raise ValueError("warp_twopass kernel takes contiguous CUDA tensors")
+    out = torch.empty((b, out_h, out_w), dtype=torch.float32, device=imgs.device)
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    fn = _kernel("warp_fused_launch", [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr])
+    _run(fn, "warp_fused", imgs.device, imgs.data_ptr(), minv.data_ptr(), out.data_ptr(), b, h, w, out_h, out_w)
+    return out
+
+
+def warp_plan(b: int, h: int, w: int, out_h: int, out_w: int) -> str:
+    """The route of ``warp_twopass`` on the card for (b, h, w) frames into
+    (out_h, out_w), from the shapes alone: ``"fused"`` where the warp
+    shrinks the frame at least FUSED_MIN_RATIO-fold along its height,
+    else ``"twopass"``.  The threshold comes from a sweep of both routes
+    on an H100 (``tools/microbench.py --which route``; PERF.md §6)."""
+    return "fused" if h >= FUSED_MIN_RATIO * out_h else "twopass"
+
+
 def warp_twopass(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """K1 as the main path calls it: (B, H, W) float32 images warped by
     (B, 3, 3) inverse homographies to (B, out_h, out_w).  CUDA tensors go
-    through the two kernels (contiguous result) or the call raises; CPU
-    tensors take the plain version; any other device raises."""
+    through the kernels of the route ``warp_plan`` names (contiguous
+    result) or the call raises; CPU tensors take the plain version; any
+    other device raises."""
     _check_warp(imgs, minv)
     if imgs.is_cuda:
+        if warp_plan(*imgs.shape, out_h, out_w) == "fused":
+            return warp_fused(imgs, minv, out_h, out_w)
         return warp_pass2(warp_pass1(imgs, minv, out_w), minv, out_h)
     if imgs.device.type == "cpu":
         return warp_twopass_plain(imgs, minv, out_h, out_w)

@@ -9,7 +9,8 @@ independent check of the first, and with ``in_bounds`` only the taps that
 land inside the input, as XLA's cost analysis counts a convolution.  K1 is
 a gather whose arithmetic is not a matmul: on the CPU its plain version
 dispatches no matmul and on the card the kernel is no PyTorch op, so
-neither count includes it; ``tap_sector_bytes`` gives its floor in bytes."""
+neither count includes it; ``tap_sector_bytes`` gives its floor in bytes,
+and ``row_tap_sector_bytes`` the floor of one of its passes."""
 
 from __future__ import annotations
 
@@ -118,4 +119,23 @@ def tap_sector_bytes(imgs: torch.Tensor, hx: torch.Tensor, vy: torch.Tensor) -> 
             okc = (c >= 0) & (c < w) & (1.0 - torch.abs(p - c) > 0)
             flat = (nn_[okc] * h + rr[okc]) * w + c[okc].long()
             sectors.append(torch.unique((imgs.data_ptr() % 32 + 4 * flat) // 32))
+    return 32 * int(torch.unique(torch.cat(sectors)).numel())
+
+
+def row_tap_sector_bytes(src: torch.Tensor, pos: torch.Tensor) -> int:
+    """Bytes of the 32-byte sectors of ``src`` (B, R, J), read through its
+    strides, that a hat resample of its rows at ``pos`` (B, R, U) reads:
+    each nonzero tap's sector once.  One pass of the two-pass warp: pass 1
+    on the images at hx, pass 2 on the intermediate's transposed view at
+    vy."""
+    b, rows, j = src.shape
+    n = torch.arange(b, device=pos.device)[:, None, None].expand_as(pos)
+    r = torch.arange(rows, device=pos.device)[None, :, None].expand_as(pos)
+    sb, sr, sj = src.stride()
+    sectors = []
+    for d in (0, 1):
+        c = torch.floor(pos) + d
+        ok = (c >= 0) & (c < j) & (1.0 - torch.abs(pos - c) > 0)
+        flat = n[ok] * sb + r[ok] * sr + c[ok].long() * sj
+        sectors.append(torch.unique((src.data_ptr() % 32 + 4 * flat) // 32))
     return 32 * int(torch.unique(torch.cat(sectors)).numel())

@@ -12,11 +12,22 @@ the port's three formulations of the same function: ``warp_twopass`` (the
 CUDA kernels), its plain version, and ``F.grid_sample`` once for each pass
 with the positions given; the kernel's error against the plain version,
 and the function's floor in bytes (``flops.tap_sector_bytes`` at the
-card's memory rate).  K1 runs only on the card: ``--which warp`` (and
-``all``) raises with ``--device cpu`` rather than time the plain version
-under K1's name.
+card's memory rate).  K1 runs only on the card: ``--which warp``,
+``route`` (and ``all``) raise with ``--device cpu`` rather than time the
+plain version under K1's name.
 
-    python -m chessvision_tpu_torch.tools.microbench [--which warp|quad|all] [--iters 5] [--device cpu]
+``--which route``: the sweep that sets K1's route rule
+(``hat_resample.warp_plan``): both routes of ``warp_twopass`` (the fused
+kernel, and pass 1 + pass 2) timed on the same inputs, in turns (fused,
+two-pass, two-pass, fused), warm (back to back) and cold (the L2 cache
+flushed before each call), at B=1 frames of height 512, 1024, 2048, 3024,
+4032 and 6048, each 4:3 and 3:4 (seeded gray frames made on the card, a
+photo's board quad as the engine hands it to K1: x scaled by the height),
+and at the main path's B=128 512²; each row with the route the rule
+picks, the routes' largest difference (0: they give the same floats) and
+the function's floor.
+
+    python -m chessvision_tpu_torch.tools.microbench [--which warp|quad|route|all] [--iters 5] [--device cpu]
 
 Prints one JSON line.
 """
@@ -178,6 +189,98 @@ def warp_times(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int, p
     }
 
 
+def cold_ms(fn: Callable[[], Any], iters: int, flush_bytes: int = 256 << 20) -> float:
+    """Mean device time of ``fn`` with the card's L2 cache flushed before
+    each call (a buffer five times the H100's 50 MB L2 written in between),
+    by CUDA events around each call alone."""
+    scratch = torch.empty(flush_bytes // 4, device=torch.cuda.current_device())
+    fn()
+    events = []
+    for _ in range(iters):
+        scratch.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+ROUTE_HEIGHTS = (512, 1024, 2048, 3024, 4032, 6048)
+
+
+def route_shapes() -> list[tuple[int, int, int]]:
+    """The route sweep's (b, h, w): B=1 frames of each height at a 4:3
+    and a 3:4 width, then the main path's B=128 512²."""
+    return [(1, h, w) for h in ROUTE_HEIGHTS for w in (h * 4 // 3, h * 3 // 4)] + [(WARP_BATCH, 512, 512)]
+
+
+def photo_inputs(b: int, h: int, w: int, seed: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded gray frames (b, h, w) made on the card, and the inverse
+    homographies (b, 3, 3) that take a photo's board quad into the 576²
+    canvas as the engine hands it to K1: the board 55–85% of the short
+    side, turned up to 7°, x scaled by the height (the reference quirk of
+    ``scale_quadrangle``)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    imgs = torch.randint(0, 256, (b, h, w), generator=g, device=device).float()
+    rng = np.random.default_rng(seed)
+    quads = []
+    for _ in range(b):
+        side = rng.uniform(0.55, 0.85) * min(h, w)
+        center = [rng.uniform(side / 2, w - side / 2), rng.uniform(side / 2, h - side / 2)]
+        a = rng.uniform(-0.12, 0.12)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        q = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * side / 2 @ rot.T + center
+        quads.append(q * [h / w, 1.0])
+    dest = torch.from_numpy(_DEST).to(device) + float(MARGIN)
+    q = torch.from_numpy(np.stack(quads)).float().to(device)
+    with full_f32():
+        minv = invert_homography(get_perspective_transform(q, dest.expand(b, 4, 2))).contiguous()
+    return imgs, minv
+
+
+def route_times(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int, iters: int) -> dict[str, Any]:
+    """Both routes of ``warp_twopass`` on one warp's inputs, ms by CUDA
+    events: warm (mean of two runs of ``iters`` back-to-back calls, in the
+    turns fused, two-pass, two-pass, fused) and cold (``cold_ms``); the
+    route ``warp_plan`` picks and the routes' largest difference."""
+    def fused():
+        return k1.warp_fused(imgs, minv, out_h, out_w)
+
+    def twopass():
+        return k1.warp_pass2(k1.warp_pass1(imgs, minv, out_w), minv, out_h)
+
+    fused_a, twopass_a, twopass_b, fused_b = (event_ms(fn, iters) for fn in (fused, twopass, twopass, fused))
+    return {
+        "route": k1.warp_plan(*imgs.shape, out_h, out_w),
+        "fused_ms": (fused_a + fused_b) / 2,
+        "twopass_ms": (twopass_a + twopass_b) / 2,
+        "fused_cold_ms": cold_ms(fused, iters),
+        "twopass_cold_ms": cold_ms(twopass, iters),
+        "routes_max_abs_diff": float((fused() - twopass()).abs().max()),
+    }
+
+
+def bench_route(device: torch.device, seed: int = 0, iters: int = 20) -> dict[str, Any]:
+    """The route sweep (module docstring): one row a shape of
+    ``route_shapes``, and the rule it was read against."""
+    if device.type != "cuda":
+        raise ValueError("microbench --which route times K1's kernels, which run only on the card")
+    bytes_per_s = card.peaks(card.card_fields(device)["device"])["bytes_per_s"]
+    rows = []
+    for b, h, w in route_shapes():
+        imgs, minv = warp_inputs(b, seed, device) if b == WARP_BATCH else photo_inputs(b, h, w, seed, device)
+        row = {"shape": [b, h, w, CANVAS, CANVAS], **route_times(imgs, minv, CANVAS, CANVAS, iters),
+               "bound_ms": warp_floor(imgs, minv, CANVAS, CANVAS, bytes_per_s)[1]}
+        rows.append(row)
+        print(f"[bench] route {row['shape']}: fused {row['fused_ms']:.4f} / cold {row['fused_cold_ms']:.4f} ms, "
+              f"two-pass {row['twopass_ms']:.4f} / cold {row['twopass_cold_ms']:.4f} ms, plan {row['route']}",
+              file=sys.stderr, flush=True)
+        del imgs, minv
+    return {"route_sweep": rows, "route_rule": f"fused if h >= {k1.FUSED_MIN_RATIO} * out_h"}
+
+
 def bench_warp(iters: int, device: torch.device, seed: int = 0, bsz: int = WARP_BATCH) -> dict[str, Any]:
     """K1's time, its plain version's and grid_sample's at the main path's
     shapes (``warp_times``), its error against the plain version, and its
@@ -202,7 +305,7 @@ def bench_warp(iters: int, device: torch.device, seed: int = 0, bsz: int = WARP_
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Microbenchmarks of the PyTorch port's quad sub-stages and K1")
-    ap.add_argument("--which", choices=["warp", "quad", "all"], default="all")
+    ap.add_argument("--which", choices=["warp", "quad", "route", "all"], default="all")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (quad only)")
     a = ap.parse_args(argv)
@@ -212,6 +315,8 @@ def main(argv: list[str] | None = None) -> int:
         out.update(bench_warp(a.iters, dev))
     if a.which in ("quad", "all"):
         out.update(bench_quad(a.iters, dev))
+    if a.which in ("route", "all"):
+        out.update(bench_route(dev))
     print(json.dumps(out), flush=True)
     return 0
 

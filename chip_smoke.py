@@ -17,8 +17,9 @@ Phases (any failure exits non-zero without the final result line):
    (refine="arbitrate", margin 32) with the committed UNet(base=32) and
    ResNet18 weights in bfloat16 on synthetic 512² frames made from
    ``--seed``; each kernel's launch count is zeroed just before and read
-   just after, and must have risen (K1 2 a pipeline call, ``bn_act`` once a
-   BatchNorm layer of the UNet and twice of the ResNet18);
+   just after, and must have risen (K1 2 a pipeline call at 512², pass 1
+   and pass 2, ``bn_act`` once a BatchNorm layer of the UNet and twice of
+   the ResNet18);
 3. plain path: the same batch with each kernel (K1's entries and
    ``bn_act``) swapped for its plain PyTorch version must give the same
    ``found`` flags, FENs and boards;
@@ -30,13 +31,15 @@ Phases (any failure exits non-zero without the final result line):
    UNet's first layer and a ResNet18 block at batch 128 beside its bound,
    its plain version and the eager ops it replaced; both entries of K1
    against their plain versions
-   (stated tolerance): ``warp_twopass`` on the inputs the main path gave
-   it at batch 8 and 128 and on seeded rotated, out-of-frame and identity
-   quads, ``hat_resample`` on the positions of the same inputs and on
-   border and upscale cases; then the times at batch 128 of the warp, of
-   each pass, of the route with the positions in memory, of the plain
-   version and of a PyTorch yardstick, beside the least time the card
-   could take (bound);
+   (stated tolerance): ``warp_twopass`` and each kernel of both its routes
+   (``warp_pass1``, ``warp_pass2``, ``warp_fused``) on the inputs the main
+   path gave it at batch 8 and 128 and on seeded rotated, out-of-frame and
+   identity quads, ``hat_resample`` on the positions of the same inputs
+   and on border and upscale cases; then the times at batch 128 of the
+   warp, of both routes (warm and with the L2 cache flushed), of each
+   pass, of the route with the positions in memory, of the plain version
+   and of a PyTorch yardstick, beside the least time the card could take
+   (bound);
 5. numbers: boards/s at batch 128 and p50 latency at batch 1 (full and
    lite), with the card's name and power limit;
 6. codecs: ``run_packed`` and ``run_yuv444`` on host-packed inputs must give
@@ -105,13 +108,15 @@ Phases (any failure exits non-zero without the final result line):
    to the server twice each (the first pays its shapes' first call), then
    ``comp`` and ``gray`` on the card against the CPU bit for bit,
    ``process_image`` at each size against ``process_batch`` of its frame,
-   ``process_batch`` at B=4 of 12 MP (full and lite) and B=2 of 48 MP; 2 K1
-   launches a pipeline call, each call held against the plain version,
+   ``process_batch`` at B=4 of 12 MP (full and lite) and B=2 of 48 MP; the
+   K1 launches of the route ``warp_plan`` names a pipeline call (the fused
+   kernel at these sizes), each call held against the plain version,
    ``found``, FENs and boards against the plain-K1 path (phase 3's rule),
    served FENs against ``process_batch``'s on the decoded frames; then
    ``process_image`` p50 at 12 and 48 MP, ``process_batch`` B=4 at 12 MP,
-   the upload, the stages of a B=1 call, and K1 at each width, per pass
-   beside its bounds;
+   the upload, the stages of a B=1 call, and K1 at each size: the fused
+   route against the two-pass route (warm and cold), ``F.grid_sample``
+   twice and the function's floor, per pass beside its bounds;
 18. edges: an empty batch through ``process_batch`` (full and lite),
    ``run_device`` and the raw ``run_stream`` gives the JAX package's
    fields, shapes and dtypes with no K1 launch; three child processes with
@@ -121,7 +126,8 @@ Phases (any failure exits non-zero without the final result line):
 19. measure: the port's measuring tools (``chessvision_tpu_torch/tools``),
    each one's ``main()`` in this process at its defaults: ``bench_torch.py``,
    ``profile_stages``, ``bench_training``, ``sweep_arbitrate_chunk`` at chunks
-   128 and 512 (its default B=1024), ``microbench --which all`` and ``mfu_accounting`` (on
+   128 and 512 (its default B=1024), ``microbench --which all`` (with K1's
+   route sweep, both routes at B=1 heights 512–6048 and at B=128 512²) and ``mfu_accounting`` (on
    the times those printed); each prints its JSON line(s) with its keys
    and the card's name and power limit, the bench's last FENs equal
    ``process_batch``'s, the sweep's are equal across chunks, and K1 runs
@@ -149,7 +155,9 @@ server's launches must be 2 for each batch the micro-batcher ran.
 ``run_stream``'s upload time lies under kernels, and the device's busy
 share and top ops over 3 train steps of each trainer.
 
-Output: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
+Output: a ``{"kernels": [...]}`` line (K1's three kernels: ``warp_pass1``
+and ``warp_pass2`` timed and counted on the main path, ``warp_fused`` on
+phase 17's photos; and ``bn_act``), the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
 """
 
@@ -229,8 +237,11 @@ def max_err(got, want) -> float:
 
 def check_k1(k1, imgs, minv, out_h: int, out_w: int) -> dict:
     """max |kernel − plain| of both entries on one warp's inputs:
-    ``warp_twopass`` whole, and ``hat_resample`` on each pass's source and
-    positions (pass 2's source is the transposed view, read in place)."""
+    ``warp_twopass`` whole (the route ``warp_plan`` picks), each kernel of
+    both routes (``warp_fused``; ``warp_pass1`` against the plain
+    intermediate and ``warp_pass2`` on it), and ``hat_resample`` on each
+    pass's source and positions (pass 2's source is the transposed view,
+    read in place)."""
     import torch
 
     hx, vy = k1.twopass_positions(minv, imgs.shape[1], out_h, out_w)
@@ -242,6 +253,9 @@ def check_k1(k1, imgs, minv, out_h: int, out_w: int) -> dict:
         raise SystemExit("FAIL: warp_twopass result is not a contiguous (B, out_h, out_w)")
     errs = {
         "warp_twopass": max_err(got, want),
+        "warp_fused": max_err(k1.warp_fused(imgs, minv, out_h, out_w), want),
+        "warp_pass1": max_err(k1.warp_pass1(imgs, minv, out_w), tmp),
+        "warp_pass2": max_err(k1.warp_pass2(tmp, minv, out_h), want),
         "hat_resample_pass1": max_err(k1.hat_resample(imgs, hx), tmp),
         "hat_resample_pass2": max_err(k1.hat_resample(tmp.transpose(1, 2), vy).transpose(1, 2), want),
     }
@@ -415,10 +429,18 @@ def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
     memory rate: the whole images read, as pass 1 stages them, and the
     intermediate written and read as well; ``copy_tb_per_s`` is what a
     device-to-device copy of the images reaches (bytes read + written over
-    its time)."""
+    its time).  Both routes (``microbench.route_times``: ``fused_ms``,
+    ``twopass_ms``, warm and cold, and ``route``, the one ``warp_plan``
+    picks) and the yardstick cold (``library_cold_ms``: each call alone
+    after an L2 flush, its device time), and each kernel as a function of
+    its own: the fused kernel's plain version (``warp_fused_plain``), and
+    for each pass its plain version with its positions, one
+    ``grid_sample`` given them, and its floor (the 32-byte sectors its
+    taps read, ``flops.row_tap_sector_bytes``, and what it writes)."""
     import torch
 
-    from chessvision_tpu_torch.tools.microbench import event_ms, grid_sample_rows, warp_times
+    from chessvision_tpu_torch.tools.flops import row_tap_sector_bytes
+    from chessvision_tpu_torch.tools.microbench import cold_ms, event_ms, grid_sample_rows, route_times, warp_times
 
     src_h = imgs.shape[1]
     res = {"shape": [list(imgs.shape), out_h, out_w], **warp_times(imgs, minv, out_h, out_w, plain_iters, HBM_BYTES_PER_S)}
@@ -444,6 +466,18 @@ def time_k1(k1, imgs, minv, out_h: int, out_w: int, plain_iters: int) -> dict:
         return grid_sample_rows(mid.transpose(1, 2), vy_)()
 
     res["library_with_positions_ms"] = event_ms(library_with_positions, iters=5)
+    res.update(route_times(imgs, minv, out_h, out_w, iters=20))
+    res["library_cold_ms"] = cold_ms(grid_sample_rows(imgs, hx), 20) + cold_ms(grid_sample_rows(tmp_t, vy), 20)
+    res["fused_plain_ms"] = event_ms(lambda: k1.warp_fused_plain(imgs, minv, out_h, out_w), plain_iters, 1)
+    res["pass1_plain_ms"] = event_ms(
+        lambda: k1.hat_resample_plain(imgs, k1.twopass_positions(minv, src_h, out_h, out_w)[0]), plain_iters, 1)
+    res["pass2_plain_ms"] = event_ms(
+        lambda: k1.hat_resample_plain(tmp_t, k1.twopass_positions(minv, src_h, out_h, out_w)[1]), plain_iters, 1)
+    res["pass1_library_ms"] = event_ms(grid_sample_rows(imgs, hx), iters=20)
+    res["pass2_library_ms"] = event_ms(grid_sample_rows(tmp_t, vy), iters=20)
+    res["pass1_floor_ms"] = (row_tap_sector_bytes(imgs, hx) + 4 * (tmp.numel() + minv.numel())) / HBM_BYTES_PER_S * 1e3
+    res["pass2_floor_ms"] = (row_tap_sector_bytes(tmp_t, vy) + 4 * (imgs.shape[0] * out_h * out_w + minv.numel())
+                             ) / HBM_BYTES_PER_S * 1e3
     scratch = torch.empty_like(imgs)
     res["copy_tb_per_s"] = 8 * imgs.numel() / event_ms(lambda: scratch.copy_(imgs), iters=20) / 1e9
     io_bytes = 4 * (minv.numel() + imgs.shape[0] * out_h * out_w)
@@ -2468,23 +2502,32 @@ def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
     frames = {name: photo_frames(seed + 17 + i, 1, *hw)[0] for i, (name, hw) in enumerate(PHOTO_SIZES.items())}
     batch12 = np.concatenate([frames["12MP"], photo_frames(seed + 30, 3, *PHOTO_SIZES["12MP"])[0]])
     batch48 = np.concatenate([frames["48MP"], photo_frames(seed + 31, 1, *PHOTO_SIZES["48MP"])[0]])
-    rec = {"frames_s": time.perf_counter() - t_phase, "errors": {}}
+    rec = {"frames_s": time.perf_counter() - t_phase, "errors": {}, "routes": {},
+           "launches_by_kernel": dict.fromkeys(k1.kernel_launches, 0)}
     launches = 0
     k1_args = {}
 
     def pipeline(label: str, fn):
-        """``fn()``, one pipeline call: K1 counted from 0 and captured; 2
-        launches, the captured call held against the plain version."""
+        """``fn()``, one pipeline call: K1 counted from 0 and captured; one
+        ``warp_twopass`` call, one launch a kernel of the route
+        ``warp_plan`` names, the captured call held against the plain
+        version."""
         nonlocal launches
-        k1.launches = 0
+        k1.zero_launches()
         t = time.perf_counter()
         out, calls = capture_k1(k1, fn)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
-        if k1.launches != 2 or len(calls["warp_twopass"]) != 1:
-            fail(f"photos: {label}: expected 2 K1 launches in one warp_twopass call, got {k1.launches} in "
-                 f"{({k: len(v) for k, v in calls.items()})}")
+        by_kernel = dict(k1.kernel_launches)
+        routes = [k1.warp_plan(*a[0].shape, a[2], a[3]) for a in calls["warp_twopass"]]
+        kernels = [name for r in routes for name in k1.ROUTE_KERNELS[r]]
+        if len(routes) != 1 or by_kernel != {name: kernels.count(name) for name in by_kernel}:
+            fail(f"photos: {label}: expected one warp_twopass call launching its route's kernels, got routes "
+                 f"{routes} and launches {by_kernel} in {({k: len(v) for k, v in calls.items()})}")
         launches += k1.launches
+        for name, n in by_kernel.items():
+            rec["launches_by_kernel"][name] += n
+        rec["routes"][label] = routes[0]
         rec["errors"].update(check_captured(k1, calls, f"photos {label}"))
         k1_args.setdefault(label, calls["warp_twopass"][0])
         return out, ms
@@ -2612,6 +2655,8 @@ def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
     for name in PHOTO_SIZES:
         imgs, minv, out_h, out_w = k1_args[f"process_image {name}"]
         t = time_k1(k1, imgs, minv, out_h, out_w, plain_iters=1)
+        t["fused_plain_max_abs_err"] = max_err(k1.warp_fused(imgs, minv, out_h, out_w),
+                                               k1.warp_fused_plain(imgs, minv, out_h, out_w))
         rows, smem = k1.pass1_plan(imgs.shape[2])
         mid = 4 * imgs.shape[0] * imgs.shape[1] * out_w
         t["pass1_plan"] = [rows, smem]
@@ -2624,7 +2669,18 @@ def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
             f"{t['pass2_ms']:.3f} against {t['pass2_bound_ms']:.3f}); function's floor {t['bound_ms']:.4f} (taps "
             f"touch {t['tap_bytes'] / 1e6:.2f} MB, {100 * t['source_share']:.1f}% of the frame), "
             f"grid_sample twice {t['library_ms']:.3f}, plain {t['plain_ms']:.1f}")
+        log(f"[photos] K1 {name} routes: warp_plan picks {t['route']}; fused {t['fused_ms']:.4f} ms (cold "
+            f"{t['fused_cold_ms']:.4f}) against two-pass {t['twopass_ms']:.4f} (cold {t['twopass_cold_ms']:.4f}): "
+            f"{t['twopass_cold_ms'] / t['fused_cold_ms']:.2f}x cold; grid_sample twice {t['library_ms']:.4f} (cold "
+            f"{t['library_cold_ms']:.4f}: {t['library_cold_ms'] / t['fused_cold_ms']:.2f}x the fused kernel); "
+            f"function's floor {t['bound_ms']:.4f}; "
+            f"routes differ by {t['routes_max_abs_diff']}, fused kernel against warp_fused_plain by "
+            f"{t['fused_plain_max_abs_err']} (plain {t['fused_plain_ms']:.2f} ms)")
+        if t["routes_max_abs_diff"] or t["fused_plain_max_abs_err"]:
+            fail(f"photos: K1 {name}: the routes or the fused kernel and its plain version differ")
     del k1_args
+    log(f"[photos] routes of the pipeline calls: {json.dumps(rec['routes'])}; launches by kernel "
+        f"{json.dumps(rec['launches_by_kernel'])}")
     rec["max_abs_err"] = max(e for case in rec["errors"].values() for e in case.values())
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"[photos] K1 launches {launches}, max |kernel - plain| {rec['max_abs_err']}; phase {rec['seconds']:.1f} s")
@@ -2835,7 +2891,7 @@ SWEEP_KEYS = ("batch", "chunk", "refine", "compile_plus_first_s", "boards_per_se
               "fens_sha256", "peak_memory_gb", "backend", "device", "power_limit_w")
 MICRO_KEYS = ("warp_twopass_ms", "warp_twopass_plain_ms", "grid_sample_twice_ms", "warp_max_abs_err",
               "warp_bound_ms", "smooth_9x9_2d", "smooth_9x9_sep", "flood_halfres", "support_decimate",
-              "backend", "device", "power_limit_w")
+              "route_sweep", "route_rule", "backend", "device", "power_limit_w")
 
 
 def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
@@ -2917,6 +2973,12 @@ def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
     (res["microbench"],) = call("microbench", microbench.main, ["--which", "all"], 1, MICRO_KEYS)
     if res["microbench"]["warp_max_abs_err"] != 0.0:
         fail(f"measure: microbench's K1 differs from its plain version by {res['microbench']['warp_max_abs_err']}")
+    sweep = res["microbench"]["route_sweep"]
+    log(f"[measure] K1 route sweep ({res['microbench']['route_rule']}; ms, warm / cold): " + "; ".join(
+        f"{r['shape'][:3]} fused {r['fused_ms']:.4f} / {r['fused_cold_ms']:.4f}, two-pass {r['twopass_ms']:.4f} / "
+        f"{r['twopass_cold_ms']:.4f}, picks {r['route']}" for r in sweep))
+    if any(r["routes_max_abs_diff"] != 0.0 for r in sweep):
+        fail(f"measure: K1's two routes differ in the sweep: {sweep}")
     (res["mfu"],) = call("mfu_accounting", mfu_accounting.main,
                          ["--unet-step-ms", str(unet["step_ms"]), "--cls-step-ms", str(cls["step_ms"]),
                           "--compute-boards-per-sec", str(rec["compute_boards_per_sec"]),
@@ -3176,12 +3238,13 @@ def main() -> int:
     engine.process_batch(frames8)  # warm-up: cuDNN algorithm choice, lazy inits
     torch.cuda.synchronize()
 
-    k1.launches = 0
+    k1.zero_launches()
     bnk.launches = 0
     single = cv.process_image(frames8[0])
     (res8, calls8), bn_calls8 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8)))
     torch.cuda.synchronize()
     launches = k1.launches
+    k1_main = dict(k1.kernel_launches)  # by kernel, over the main path's calls (phases 2 and 4)
     bn_by_path = {"main": bnk.launches}
     # bn_act once a BatchNorm layer of the UNet, twice of the ResNet18 (the two arbitrate passes)
     n_bn = sum(isinstance(m, BatchNorm2d) for m in engine._extractor.modules()) + 2 * sum(
@@ -3195,8 +3258,9 @@ def main() -> int:
     log(f"[main] process_batch B=8 found={res8.board_found.tolist()} fens={res8.fens}")
     log(f"[main] K1 launches over process_image + process_batch: {launches}; entries called in "
         f"process_batch: {({k: len(v) for k, v in calls8.items()})}")
-    if launches != 4:
-        raise SystemExit(f"FAIL: expected 4 K1 launches (2 per pipeline call), got {launches}")
+    if launches != 4 or k1_main["warp_pass1"] != 2 or k1_main["warp_pass2"] != 2:
+        raise SystemExit(f"FAIL: expected 4 K1 launches (pass 1 and pass 2 a pipeline call), got {launches}: "
+                         f"{k1_main}")
     if len(calls8["warp_twopass"]) != 1 or calls8["hat_resample"]:
         raise SystemExit("FAIL: the main path should call warp_twopass once and hat_resample never")
     if not (res8.probabilities.shape == (8, 64, 13) and np.isfinite(res8.probabilities).all()):
@@ -3248,11 +3312,12 @@ def main() -> int:
     uniq = board_frames(args.seed + 1, min(bsz, 32))[0]
     frames128 = np.concatenate([uniq] * (-(-bsz // len(uniq))))[:bsz]
     engine.process_batch(frames128)  # warm-up at this batch
-    k1.launches = 0
+    k1.zero_launches()
     bnk.launches = 0
     (res128, calls128), bn_calls128 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128)))
     torch.cuda.synchronize()
     launches128 = k1.launches
+    k1_main = {k: n + k1.kernel_launches[k] for k, n in k1_main.items()}
     bn_by_path["main"] += bnk.launches
     log(f"[main] K1 launches over process_batch B={bsz}: {launches128}; bn_act {bnk.launches}")
     if launches128 != 2 or bnk.launches != n_bn:
@@ -3274,6 +3339,13 @@ def main() -> int:
         f"library_ms is grid_sample twice given the positions, {k1_128['library_ms']:.3f} ms "
         f"({k1_128['library_with_positions_ms']:.3f} with building them); a device-to-device copy "
         f"reaches {k1_128['copy_tb_per_s']:.2f} TB/s of the {HBM_BYTES_PER_S / 1e12:.2f} the bounds assume")
+    log(f"[k1] B={bsz} routes: warp_plan picks {k1_128['route']}; two-pass {k1_128['twopass_ms']:.4f} ms "
+        f"(cold {k1_128['twopass_cold_ms']:.4f}), fused {k1_128['fused_ms']:.4f} ms (cold "
+        f"{k1_128['fused_cold_ms']:.4f}); routes differ by {k1_128['routes_max_abs_diff']}; each pass alone: "
+        f"pass 1 {k1_128['pass1_ms']:.4f} ms against its floor {k1_128['pass1_floor_ms']:.4f} (plain "
+        f"{k1_128['pass1_plain_ms']:.2f}, grid_sample {k1_128['pass1_library_ms']:.4f}), pass 2 "
+        f"{k1_128['pass2_ms']:.4f} against {k1_128['pass2_floor_ms']:.4f} (plain {k1_128['pass2_plain_ms']:.2f}, "
+        f"grid_sample {k1_128['pass2_library_ms']:.4f})")
     del calls8, calls128, warp128
 
     # bn_act against its plain version, bit for bit: every call shape of the bf16 models at B=8 and
@@ -3414,28 +3486,45 @@ def main() -> int:
     log(f"[f32] found equal={bool((res32.board_found == res8.board_found).all())}, "
         f"FENs equal bf16 vs f32: {agree}/8")
 
-    kernels = [{
-        "name": "hat_resample",
-        "route": "cuda",
-        "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
-        "replaces": "chessvision_tpu/ops/pallas_kernels.py:123",
-        "launches": (launches + launches_stream + launches_yolo + launches_server + launches_augment
-                     + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
-                     + launches_photos + launches_edges + launches_measure + launches_memory
-                     + sum(by_card.values())),
-        "max_abs_err": max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0),
-        "ms": k1_128["ms"],
-        "plain_ms": k1_128["plain_ms"],
-        "bound_ms": k1_128["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": k1_128["library_ms"],
-        "augment_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
-                           for name, t in k1_augment.items()},
-        "photo_shapes": {name: {k: t[k] for k in ("ms", "pass1_ms", "pass2_ms", "plain_ms", "library_ms", "bound_ms",
-                                                  "tap_bytes", "two_kernel_floor_ms", "pass1_bound_ms",
-                                                  "pass2_bound_ms", "pass1_plan", "shape")}
+    # K1's three kernels: the two-pass route's two, timed at the main path's B=128 512² (their launches:
+    # phases 2 and 4's pipeline calls), and the fused route's one, timed at the 12 MP photo (its launches:
+    # phase 17's pipeline calls, the path of the photos users send)
+    k1_launches_all = (launches + launches_stream + launches_yolo + launches_server + launches_augment
+                       + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
+                       + launches_photos + launches_edges + launches_measure + launches_memory
+                       + sum(by_card.values()))
+    k1_worst = max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0)
+    k1_common = {"route": "cuda", "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
+                 "replaces": "chessvision_tpu/ops/pallas_kernels.py:123", "max_abs_err": k1_worst,
+                 "bound_by": "bytes", "k1_launches_all_paths": k1_launches_all}
+    photo12 = photos["k1"]["12MP"]
+    kernels = [
+        {"name": f"warp_{p}", **k1_common, "launches": k1_main[f"warp_{p}"], "ms": k1_128[f"{p}_ms"],
+         "plain_ms": k1_128[f"{p}_plain_ms"], "bound_ms": k1_128[f"{p}_floor_ms"],
+         "library_ms": k1_128[f"{p}_library_ms"], "shape": k1_128["shape"]}
+        for p in ("pass1", "pass2")
+    ]
+    kernels[0].update(
+        warp_twopass_b128={k: k1_128[k] for k in ("ms", "twopass_ms", "twopass_cold_ms", "fused_ms", "fused_cold_ms",
+                                                   "plain_ms", "library_ms", "bound_ms", "route")},
+        augment_shapes={name: {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "two_kernel_floor_ms")}
+                        for name, t in k1_augment.items()})
+    # at B=1 back-to-back calls measure the host's launches, so the fused kernel's and the yardstick's
+    # ms are device times of single calls after an L2 flush (the back-to-back ones beside them)
+    kernels.append({
+        "name": "warp_fused", **k1_common, "launches": photos["launches_by_kernel"]["warp_fused"],
+        "ms": photo12["fused_cold_ms"], "plain_ms": photo12["fused_plain_ms"], "bound_ms": photo12["bound_ms"],
+        "library_ms": photo12["library_cold_ms"], "library": "F.grid_sample twice (cuDNN off), positions given",
+        "ms_back_to_back": photo12["fused_ms"], "library_ms_back_to_back": photo12["library_ms"],
+        "shape": photo12["shape"],
+        "photo_shapes": {name: {k: t[k] for k in ("route", "fused_ms", "fused_cold_ms", "twopass_ms", "twopass_cold_ms",
+                                                  "pass1_ms", "pass2_ms", "fused_plain_ms", "plain_ms", "library_ms",
+                                                  "library_cold_ms", "bound_ms", "tap_bytes", "pass1_plan", "shape")}
                          for name, t in photos["k1"].items()},
-    }]
+    })
+    idle_k1 = [k["name"] for k in kernels if not k["launches"]]
+    if idle_k1:
+        fail(f"K1 kernels {idle_k1} never launched on their paths")
     t = bn_times["unet_inc"]
     kernels.append({
         "name": "bn_act",

@@ -140,9 +140,11 @@ def test_warp_twopass_kernel_matches_plain(case) -> None:
     assert float(want.abs().max()) > 0
 
 
-# camera frames: K1's pass 1 gets source rows as wide as the photo (the warp
-# reads the full-resolution gray), past the 7 264 floats whose 8 rows fit a
-# block's shared memory; 16 320 stages 2 rows a block, 40 000 one, 60 000 none
+# camera frames: the warp reads the full-resolution gray, so K1 gets source
+# rows as wide as the photo.  The first three cases take the fused route
+# (``warp_plan``); the short frames below take the two-pass route, whose
+# pass 1 stages 2 rows a block at 16 320 floats, one at 40 000, none at
+# 60 000 (the photo sizes' pass 1 is held in the test after)
 _CAMERA_WARPS = {  # name: (b, h, w)
     "12mp_b2": (2, 3024, 4032),
     "48mp": (1, 6048, 8064),
@@ -165,15 +167,106 @@ def test_warp_twopass_kernel_matches_plain_at_camera_widths(case) -> None:
     before = hat_resample.launches
     got = hat_resample.warp_twopass(imgs, minv, 576, 576)
     torch.cuda.synchronize()
-    assert hat_resample.launches == before + 2
+    # one launch a kernel of the route warp_plan names (fused at the photo sizes)
+    assert hat_resample.launches == before + _route_launches(b, h, w, 576, 576)
     want = hat_resample.warp_twopass_plain(imgs, minv, 576, 576)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     assert float(want.abs().max()) > 0
 
 
+def _route_launches(b: int, h: int, w: int, out_h: int, out_w: int) -> int:
+    return len(hat_resample.ROUTE_KERNELS[hat_resample.warp_plan(b, h, w, out_h, out_w)])
+
+
+# the photos users send (chip_smoke.py's PHOTO_SIZES): both routes against
+# the plain version, the fused one through warp_twopass
+_PHOTO_SIZES = {"12mp": (3024, 4032), "12mp_portrait": (4032, 3024), "48mp": (6048, 8064), "odd": (3023, 4031)}
+
+
+@pytest.mark.parametrize("case", sorted(_PHOTO_SIZES))
+def test_both_routes_match_plain_at_the_photo_sizes(case) -> None:
+    _need_card()
+    from chessvision_tpu_torch.synthetic import photo_frames
+
+    h, w = _PHOTO_SIZES[case]
+    frames, quads = photo_frames(sorted(_PHOTO_SIZES).index(case), 1, h, w)
+    imgs = torch.from_numpy(frames[..., 1].astype(np.float32)).cuda()
+    q = quads.astype(np.float64)
+    q[:, :, 0] *= h / w  # the engine's quad: x scaled by the height (the reference quirk)
+    minv = _minv_from_quads(q, 576, 576)
+    assert hat_resample.warp_plan(1, h, w, 576, 576) == "fused"
+    want = hat_resample.warp_twopass_plain(imgs, minv, 576, 576)
+    before = dict(hat_resample.kernel_launches)
+    fused = hat_resample.warp_twopass(imgs, minv, 576, 576)
+    torch.cuda.synchronize()
+    assert hat_resample.kernel_launches["warp_fused"] == before["warp_fused"] + 1
+    assert hat_resample.kernel_launches["warp_pass1"] == before["warp_pass1"]
+    assert fused.shape == (1, 576, 576) and fused.is_contiguous()
+    torch.testing.assert_close(fused, want, atol=0, rtol=0)
+    twopass = hat_resample.warp_pass2(hat_resample.warp_pass1(imgs, minv, 576), minv, 576)
+    torch.testing.assert_close(twopass, want, atol=0, rtol=0)
+    assert float(want.abs().max()) > 0
+
+
+def _route_quads(h: int, w: int) -> np.ndarray:
+    """tests/test_torch_warp_route.py's quads, without JAX: the photo's,
+    the engine's (x scaled by the height), two rotated and one partly
+    outside the frame."""
+    from chessvision_tpu_torch.synthetic import photo_frames
+
+    photo = photo_frames(h + w, 1, h, w)[1][0].astype(np.float64)
+    quirk = photo * [h / w, 1.0]
+    return np.stack([photo, quirk, _rotated(30, 0.5 * min(h, w), 0.5 * w, 0.5 * h),
+                     _rotated(-25, 0.45 * min(h, w), 0.4 * w, 0.6 * h),
+                     _rotated(6, 0.7 * min(h, w), 0.85 * w, 0.8 * h)])
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (641, 479)], ids=["480x640", "641x479"])
+def test_fused_kernel_matches_plain_on_the_cpu_files_quads(hw) -> None:
+    _need_card()
+    h, w = hw
+    rng = np.random.default_rng(h)
+    quads = _route_quads(h, w)
+    imgs = torch.from_numpy(rng.integers(0, 256, (len(quads), h, w)).astype(np.float32)).cuda()
+    for out in (64, 96):
+        minv = _minv_from_quads(quads, out, out)
+        assert hat_resample.warp_plan(len(quads), h, w, out, out) == "fused"
+        got = hat_resample.warp_fused(imgs, minv, out, out)
+        torch.testing.assert_close(got, hat_resample.warp_twopass_plain(imgs, minv, out, out), atol=0, rtol=0)
+    # the guarded denominator of the CPU file: e − y·h = 0 on row 256, which pass 2 reads
+    m = torch.tensor([[1.0, 0.0, 0.0], [4.0, 1.0, 200.0], [0.0, 1.0 / 256.0, 1.0]])
+    minv = torch.stack([m, m * 0.5]).cuda()
+    got = hat_resample.warp_fused(imgs[:2], minv, 64, 64)
+    torch.testing.assert_close(got, hat_resample.warp_twopass_plain(imgs[:2], minv, 64, 64), atol=0, rtol=0)
+
+
+def test_fused_kernel_at_integer_positions_is_exact() -> None:
+    """A 2× downscale samples every output at an integer position: the
+    second tap of each axis has weight exactly 0, and the canvas is the
+    source's even pixels, bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(7)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 2400, 2600)).astype(np.float32)).cuda()
+    minv = torch.tensor([[2.0, 0.0, 0.0], [0.0, 2.0, 0.0], [0.0, 0.0, 1.0]]).expand(2, 3, 3).contiguous().cuda()
+    assert hat_resample.warp_plan(2, 2400, 2600, 576, 576) == "fused"
+    got = hat_resample.warp_twopass(imgs, minv, 576, 576)
+    torch.testing.assert_close(got, imgs[:, 0:1152:2, 0:1152:2], atol=0, rtol=0)
+    torch.testing.assert_close(got, hat_resample.warp_twopass_plain(imgs, minv, 576, 576), atol=0, rtol=0)
+
+
+def test_fused_route_of_an_empty_batch_launches_nothing() -> None:
+    _need_card()
+    imgs = torch.zeros((0, 3024, 4032), device="cuda")
+    minv = torch.zeros((0, 3, 3), device="cuda")
+    before, by_kernel = hat_resample.launches, dict(hat_resample.kernel_launches)
+    assert hat_resample.warp_twopass(imgs, minv, 576, 576).shape == (0, 576, 576)
+    assert hat_resample.launches == before and hat_resample.kernel_launches == by_kernel
+
+
 def test_process_image_on_a_48mp_frame() -> None:
-    """The facade on an 8064×6048 frame: two K1 launches, a result with
-    the segmenter's 256² output, a 512² board where one was found."""
+    """The facade on an 8064×6048 frame: the K1 launches of its route, a
+    result with the segmenter's 256² output, a 512² board where one was
+    found."""
     _need_card()
     from chessvision_tpu_torch.core import ChessVision
     from chessvision_tpu_torch.synthetic import photo_frames
@@ -181,7 +274,7 @@ def test_process_image_on_a_48mp_frame() -> None:
     frame = photo_frames(0, 1, 6048, 8064)[0][0]
     before = hat_resample.launches
     res = ChessVision(device="cuda").process_image(frame)
-    assert hat_resample.launches == before + 2
+    assert hat_resample.launches == before + _route_launches(1, 6048, 8064, 576, 576)
     assert res.board_extraction.probabilities.shape == (256, 256)
     if res.position is not None:
         assert res.board_extraction.board_image.shape == (512, 512)
@@ -199,13 +292,13 @@ def test_warp_twopass_kernel_rejects_noncontiguous_images() -> None:
 
 
 def test_unkept_variants_equal_kept_kernels(capsys) -> None:
-    """The staged pass 2 and the fused warp (``csrc/variants``) build and
+    """The staged pass 2 and the slab-staging warp (``csrc/variants``) build and
     give the kept kernels' floats; the script exits non-zero otherwise."""
     _need_card()
     from chessvision_tpu_torch import k1_variants
 
     assert k1_variants.main(["--batch", "4"]) == 0
-    assert "warp_fused_ms" in capsys.readouterr().out
+    assert "warp_slab_ms" in capsys.readouterr().out
 
 
 def _k1_calls(fn) -> list[tuple]:
