@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
 
-Phases 1–15 and 17–20 need one card; phase 16 runs over every card of a
+Phases 1–15 and 17–21 need one card; phase 16 runs over every card of a
 machine that shows two or more, or over ``--cards N`` (which fails with
 fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
 (``--load-client``, ``--mesh-child``, ``--cli-trainers``,
@@ -141,10 +141,22 @@ Phases (any failure exits non-zero without the final result line):
    ``tools/make_hard_example_weights`` on a seeded squares root, then one
    ``train_classifier`` epoch with ``use_sample_weights`` reading the
    column it wrote.
+21. test-set tools, on a seeded test root (``synthetic.write_test_root``: 16
+   frames at 512², 2 at 768²): ``tools/make_fen_goldens`` on the CPU;
+   ``tools/drift_gate`` on the card against those goldens (found flags
+   identical, the FENs within the band ``GATE_*`` measured on an H100), and
+   against two altered copies, each refused with the script's failure
+   string; ``tools/debug_gridfix`` per image and ``--summary`` on the card
+   and on the CPU (the boards whose chosen side or candidate FENs differ,
+   the largest correction and gap differences, each device's shipping
+   blend against its own ``process_batch`` FEN); ``tools/exp_gridfix_quad``
+   on the card (its totals line); every K1 call of the phase held against
+   its plain version, and K1 at 512²→512² timed beside its bound and
+   ``F.grid_sample`` twice.
 
 ``bn_act``'s launches are counted over each path (zeroed just before,
 read just after) and must have risen on every path that runs the UNet
-or the ResNet18 in this process.  Phases 7–10 and 13–19 also record what
+or the ResNet18 in this process.  Phases 7–10, 13–19 and 21 also record what
 their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
@@ -3136,6 +3148,251 @@ def phase_memory(k1, cv, card: str, seed: int, sweeps: list[dict]) -> tuple[int,
     return launches, res
 
 
+# -- 21. the test-set tools -------------------------------------------------------------------------
+
+# the seeded test set: sizes taken in turn, so frames 8 and 17 are 768² and the other 16 are 512²
+# (two shape groups; 768² takes K1's two-pass route into the 576² canvas and the fused route
+# into exp_gridfix_quad's 512² board)
+TESTSET_N = 18
+TESTSET_SIZES = (512,) * 8 + (768,)
+# the band the phase holds the card's FENs to on that set, calibrated as the JAX gate was
+# (scripts/tpu_drift_gate.py: 37/38 exact and 2 squares measured, floor 35 and band 3): on an
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6) 16 of 18 boards were exact and the
+# worst 2 squares off, so one square of headroom on the worst board and two boards on the floor
+GATE_MAX_SQUARE_DIFF = 3
+GATE_MIN_EXACT = 14
+
+
+def moved_fen(fen: str, k: int) -> str:
+    """``fen`` with its first ``k`` squares (FEN order) changed."""
+    from chessvision_tpu_torch.chessboard import fen_to_labels
+
+    labels = fen_to_labels(fen)
+    for i in range(k):
+        labels[i] = "q" if labels[i] != "q" else "Q"
+    rows = []
+    for r in range(8):
+        row, empty = "", 0
+        for lab in labels[8 * r : 8 * r + 8]:
+            if lab == "f":
+                empty += 1
+                continue
+            row += (str(empty) if empty else "") + lab
+            empty = 0
+        rows.append(row + (str(empty) if empty else ""))
+    return "/".join(rows)
+
+
+def phase_testset(k1, cv, seed: int, root: str, card: str) -> tuple[int, dict]:
+    """Phase 21: the four programs that read the test set, on a seeded
+    synthetic one (``write_test_root``: 16 frames at 512², 2 at 768²).
+    (b) ``tools/make_fen_goldens`` on the CPU; (c) ``tools/drift_gate`` on
+    the card against them: found flags identical, exact boards and the
+    worst board's difference within ``GATE_*``; (d) the gate against two
+    altered copies (a board's FEN moved by the band + 1 squares, a found
+    flag flipped) fails with the script's failure string; (e)
+    ``debug_gridfix`` per image and ``--summary`` on the card and on the
+    CPU: the boards whose chosen side or candidate FENs differ between the
+    two, the largest correction and gap differences, and each device's
+    ``fen_blend_0.01`` against its own ``process_batch`` FEN; (f)
+    ``exp_gridfix_quad`` on the card; (g) every K1 call of (c)–(f) held
+    against its plain version, and K1 at 512²→512² timed.  Returns K1's
+    launches over (c)–(f) and the phase's record."""
+    import contextlib
+    import io
+
+    import torch
+
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.eval.evaluate import get_test_generator
+    from chessvision_tpu_torch.synthetic import write_test_root
+    from chessvision_tpu_torch.tools import debug_gridfix, drift_gate, exp_gridfix_quad, make_fen_goldens
+
+    t_phase = time.perf_counter()
+    dev_type = cv.engine.device.type
+    test_root = str(write_test_root(os.path.join(root, "testset"), TESTSET_N, seed + 21, TESTSET_SIZES))
+    items = list(get_test_generator(test_root))
+    shapes = sorted({tuple(it[0].shape[:2]) for it in items})
+    rec: dict = {"images": len(items), "shapes": shapes, "seconds": {}}
+    if len(items) != TESTSET_N or len(shapes) != 2:
+        fail(f"testset: expected {TESTSET_N} frames in two shapes, read {len(items)} in {shapes}")
+
+    def printed(fn, *args) -> list[dict]:
+        """``fn(*args)``'s printed JSON lines (it must return 0 or None)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*args)
+        if rc not in (0, None):
+            fail(f"testset: {fn.__module__}.main{args} returned {rc}")
+        return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+    # (b) the CPU goldens: the tool's command line in a process of its own, while this process
+    # replays debug_gridfix on the CPU and runs the card's programs that need no goldens (each
+    # side takes half the CPU's threads: the plain warp gains little past four)
+    goldens_path = os.path.join(root, "testset_goldens_cpu.json")
+    goldens_log = os.path.join(root, "testset_goldens_cpu.log")
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    t_goldens = time.perf_counter()
+    with open(goldens_log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "chessvision_tpu_torch.tools.make_fen_goldens", "--test-root", test_root,
+             "--out", goldens_path],
+            env={**child_env(), "OMP_NUM_THREADS": str(threads)}, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        # (e) debug_gridfix on the CPU (the tool's functions: one replay gives both of its outputs)
+        t0 = time.perf_counter()
+        saved_threads = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            cpu_engine = ChessVision(lazy_load=False, device="cpu").engine
+            per_item_cpu = debug_gridfix.replay_items(cpu_engine, items)
+        finally:
+            torch.set_num_threads(saved_threads)
+        per_cpu = debug_gridfix.records(per_item_cpu, items, "cpu")
+        summary_cpu, dump_cpu = debug_gridfix.summarize(per_item_cpu, items, "cpu")
+        rec["seconds"]["debug_gridfix_cpu"] = time.perf_counter() - t0
+
+        # (c)–(f) on the card, every K1 call recorded
+        dump_card = os.path.join(root, "debug_dump_card.json")
+
+        def on_card():
+            # (e) debug_gridfix on the card, per image and --summary (its dump: CVTPU_DEBUG_DUMP)
+            t0 = time.perf_counter()
+            per_image = printed(debug_gridfix.main, ["--test-root", test_root])
+            saved = os.environ.get("CVTPU_DEBUG_DUMP")
+            os.environ["CVTPU_DEBUG_DUMP"] = dump_card
+            try:
+                (debug_summary,) = printed(debug_gridfix.main, ["--summary", "--test-root", test_root])
+            finally:
+                if saved is None:
+                    os.environ.pop("CVTPU_DEBUG_DUMP")
+                else:
+                    os.environ["CVTPU_DEBUG_DUMP"] = saved
+            rec["seconds"]["debug_gridfix_card"] = time.perf_counter() - t0
+            # (f) exp_gridfix_quad on the card
+            t0 = time.perf_counter()
+            quad_lines = printed(exp_gridfix_quad.main, ["--test-root", test_root])
+            rec["seconds"]["exp_gridfix_quad"] = time.perf_counter() - t0
+            # (c) the gate, once the goldens are written
+            rc = child.wait(timeout=900)
+            rec["seconds"]["goldens_cpu"] = time.perf_counter() - t_goldens
+            if rc != 0:
+                fail(f"testset: make_fen_goldens exited {rc}: {open(goldens_log).read()[-2000:]}")
+            t0 = time.perf_counter()
+            summary, got = drift_gate.gate(goldens_path, test_root, GATE_MAX_SQUARE_DIFF, GATE_MIN_EXACT, cv=cv)
+            rec["seconds"]["gate"] = time.perf_counter() - t0
+            goldens = json.loads(open(goldens_path).read())["results"]
+            # (d) the gate must gate: two altered copies of the goldens
+            exact_found = next((n for n, g in goldens.items() if g["found"] and got[n] == g), None)
+            if exact_found is None:
+                fail("testset: no found board with the golden's FEN to alter")
+            first = next(iter(goldens))
+            k = GATE_MAX_SQUARE_DIFF + 1
+            moved = moved_fen(goldens[exact_found]["fen"], k)
+            altered = {
+                "moved": ({**goldens, exact_found: {"found": True, "fen": moved}},
+                          f"{exact_found}: {k} squares differ from the CPU golden (band is {GATE_MAX_SQUARE_DIFF}): "
+                          f"{dev_type}={got[exact_found]['fen']} golden={moved}"),
+                "flipped": ({**goldens, first: {**goldens[first], "found": not goldens[first]["found"]}},
+                            f"{first}: found flag drifted ({dev_type}={got[first]['found']}, "
+                            f"golden={not goldens[first]['found']})"),
+            }
+            refused = {}
+            for label, (alt, expected) in altered.items():
+                path = os.path.join(root, f"testset_goldens_{label}.json")
+                with open(path, "w") as f:
+                    json.dump({"platform": "cpu", "results": alt}, f, indent=1, sort_keys=True)
+                alt_summary, _ = drift_gate.gate(path, test_root, GATE_MAX_SQUARE_DIFF, GATE_MIN_EXACT, cv=cv)
+                refused[label] = alt_summary["failures"]
+                if expected not in alt_summary["failures"]:
+                    fail(f"testset: the gate against the {label} goldens did not fail with {expected!r}: "
+                         f"{alt_summary}")
+            torch.cuda.synchronize()
+            return goldens, summary, got, refused, per_image, debug_summary, quad_lines
+
+        k1.zero_launches()
+        (goldens, summary, got, refused, per_card, summary_card, quad_lines), calls = capture_k1(k1, on_card)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    launches = k1.launches
+    rec["launches_by_kernel"] = dict(k1.kernel_launches)
+    if sorted(goldens) != sorted(it[1] for it in items):
+        fail(f"testset: the goldens name other images than the test set's: {sorted(goldens)}")
+    log(f"[testset] CPU goldens of {len(items)} frames {shapes} (make_fen_goldens, {threads} threads, beside the "
+        f"CPU replay) in {rec['seconds']['goldens_cpu']:.1f} s: {sum(g['found'] for g in goldens.values())} found")
+    rec["gate"] = summary
+    rec["refused"] = refused
+    log(f"[testset] gate on the card ({card}): {json.dumps(summary)} in {rec['seconds']['gate']:.1f} s")
+    drifted = [f for f in summary["failures"] if "found flag drifted" in f]
+    if drifted:
+        fail(f"testset: found flags differ between the card and the CPU goldens: {drifted}")
+    if summary["failures"]:
+        fail(f"testset: the card's FENs left the band (worst {GATE_MAX_SQUARE_DIFF} squares, at least "
+             f"{GATE_MIN_EXACT} exact): {summary['failures']}")
+    log(f"[testset] the gate refuses both altered goldens: {json.dumps(refused)}")
+
+    dump_card = json.loads(open(dump_card).read())
+    if [r["image"] for r in per_card] != [r["image"] for r in per_cpu] or set(dump_card) != set(dump_cpu):
+        fail("testset: debug_gridfix on the card and on the CPU replayed other images")
+    flips = [{"image": c["image"], **{k: [c[k], p[k]] for k in ("chosen", "fen0", "fen1", "found") if c[k] != p[k]}}
+             for c, p in zip(per_card, per_cpu) if any(c[k] != p[k] for k in ("chosen", "fen0", "fen1", "found"))]
+    rec["debug_gridfix"] = {
+        "boards_that_differ": flips,
+        "max_abs_corr_diff": max(abs(a - b) for c, p in zip(per_card, per_cpu) for a, b in zip(c["corr"], p["corr"])),
+        "max_abs_conf_diff": max(abs(c[k] - p[k]) for c, p in zip(per_card, per_cpu) for k in ("conf0", "conf1")),
+        "max_abs_gap_diff": max(abs((c["conf1"] - c["conf0"]) - (p["conf1"] - p["conf0"]))
+                                for c, p in zip(per_card, per_cpu)),
+        "wrong_squares_card": summary_card["wrong_squares"],
+        "wrong_squares_cpu": summary_cpu["wrong_squares"],
+        "near_ties_card": summary_card["near_ties_with_consequence"],
+        "near_ties_cpu": summary_cpu["near_ties_with_consequence"],
+        # the shipping τ's blend against the engine's own FEN on the same device (found boards)
+        "blend_not_process_batch_card": sorted(n for n, g in got.items() if g["found"]
+                                               and dump_card[n]["fen_blend_0.01"] != g["fen"]),
+        "blend_not_process_batch_cpu": sorted(n for n, g in goldens.items() if g["found"]
+                                              and dump_cpu[n]["fen_blend_0.01"] != g["fen"]),
+    }
+    log(f"[testset] debug_gridfix card against CPU ({rec['seconds']['debug_gridfix_card']:.1f} s on the card, "
+        f"{rec['seconds']['debug_gridfix_cpu']:.1f} s on the CPU): {json.dumps(rec['debug_gridfix'])}")
+    for c, p in zip(per_card, per_cpu):
+        log(f"[testset]   {c['image']}: card {json.dumps({k: c[k] for k in ('corr', 'conf0', 'conf1', 'chosen')})} "
+            f"cpu {json.dumps({k: p[k] for k in ('corr', 'conf0', 'conf1', 'chosen')})}")
+    if summary_card["images"] != len(items) or summary_cpu["images"] != len(items):
+        fail("testset: debug_gridfix --summary counted other images than the test set's")
+
+    # (f) exp_gridfix_quad's lines
+    totals = quad_lines[-1]
+    if totals.get("backend") != dev_type or "sum_affine" not in totals:
+        fail(f"testset: exp_gridfix_quad's totals line is malformed: {totals}")
+    rec["exp_gridfix_quad"] = totals
+    log(f"[testset] exp_gridfix_quad on the card ({rec['seconds']['exp_gridfix_quad']:.1f} s): "
+        f"{len(quad_lines) - 1} boards with errors; totals {json.dumps(totals)}")
+
+    # (g) K1: every recorded call against its plain version, 512²→512² timed
+    rec["errors"] = check_captured(k1, calls, "testset")
+    rec["max_abs_err"] = max(e for case in rec["errors"].values() for e in case.values())
+    idle = sorted({name for kernels in k1.ROUTE_KERNELS.values() for name in kernels
+                   if not rec["launches_by_kernel"][name]})
+    if idle:
+        fail(f"testset: K1 kernels {idle} never launched in (c)-(f): {rec['launches_by_kernel']}")
+    board = next((a for a in calls["warp_twopass"] if tuple(a[0].shape[1:]) == (512, 512) and a[2:] == (512, 512)),
+                 None)
+    if board is None:
+        fail("testset: exp_gridfix_quad made no 512²→512² warp")
+    t = time_k1(k1, *board, plain_iters=1)
+    rec["k1_512_to_512"] = {k: t[k] for k in ("shape", "route", "ms", "pass1_ms", "pass2_ms", "bound_ms",
+                                                "library_ms", "plain_ms", "twopass_cold_ms", "library_cold_ms")}
+    log(f"[testset] K1 {t['shape']} ({t['route']}): {t['ms']:.4f} ms (cold {t['twopass_cold_ms']:.4f}; pass 1 "
+        f"{t['pass1_ms']:.4f}, pass 2 {t['pass2_ms']:.4f}) against its bytes bound {t['bound_ms']:.4f} ms; "
+        f"F.grid_sample twice {t['library_ms']:.4f} (cold {t['library_cold_ms']:.4f}); plain {t['plain_ms']:.1f}; {card}")
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"[testset] K1 launches {launches} {json.dumps(rec['launches_by_kernel'])} over {len(calls['warp_twopass'])} "
+        f"calls, max |kernel - plain| {rec['max_abs_err']}; seconds {json.dumps(rec['seconds'])}")
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3461,6 +3718,9 @@ def main() -> int:
     launches_measure, measure = counted("measure", lambda: phase_measure(k1, cv, card))
     # -- 20. memory at B=1024, the load test, hard-example weights ------------------------------------
     launches_memory, memory = counted("memory", lambda: phase_memory(k1, cv, card, args.seed, measure["sweep"]))
+    # -- 21. the programs that read the test set ---------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+        launches_testset, testset = counted("testset", lambda: phase_testset(k1, cv, args.seed, root, card))
     # every path that runs the UNet or the ResNet18 in this process (the YOLO pair keeps its eager
     # BatchNorm + SiLU, augmentation runs no model, the parallel and multicard ranks are processes of their own)
     idle = [p for p, n in bn_by_path.items() if n == 0 and p not in ("yolo", "augment", "parallel", "multicard")]
@@ -3468,7 +3728,7 @@ def main() -> int:
     if idle:
         fail(f"bn_act never launched on the paths {idle}")
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
-                photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"])
+                photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"], testset["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
@@ -3477,7 +3737,7 @@ def main() -> int:
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
         f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}, "
-        f"measure {launches_measure}, memory {launches_memory}")
+        f"measure {launches_measure}, memory {launches_memory}, testset {launches_testset}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -3492,7 +3752,7 @@ def main() -> int:
     k1_launches_all = (launches + launches_stream + launches_yolo + launches_server + launches_augment
                        + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
                        + launches_photos + launches_edges + launches_measure + launches_memory
-                       + sum(by_card.values()))
+                       + launches_testset + sum(by_card.values()))
     k1_worst = max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0)
     k1_common = {"route": "cuda", "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
                  "replaces": "chessvision_tpu/ops/pallas_kernels.py:123", "max_abs_err": k1_worst,
@@ -3544,6 +3804,7 @@ def main() -> int:
         "checked_inputs": bn_checked,
     })
     log(f"[memory] summary {json.dumps(memory)}")
+    log(f"[testset] summary {json.dumps(testset)}")
     if multicard:
         kernels[0].update(launches_by_card=by_card, multicard_shapes=multicard["k1"]["times"])
         log(f"[multicard] summary {json.dumps({k: v for k, v in multicard.items() if k != 'binding'})}")

@@ -752,3 +752,66 @@ def test_run_device_at_b1024_fits_and_equals_two_b512_calls() -> None:
     names = constants.SQUARE_NAMES_NORMAL
     assert torch.equal(whole["found"].cpu(), torch.cat([h["found"] for h in halves]).cpu())
     assert assemble_fens(whole, names) == assemble_fens(halves[0], names) + assemble_fens(halves[1], names)
+
+
+# -- the test-set tools ----------------------------------------------------------------
+
+
+def _gate_cli(*args: str, timeout: int = 600) -> tuple[int, dict]:
+    """``python -m chessvision_tpu_torch.tools.drift_gate ARGS``: (exit code,
+    its last printed JSON line)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-m", "chessvision_tpu_torch.tools.drift_gate", *args],
+                          cwd=repo, capture_output=True, text=True, timeout=timeout)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    return proc.returncode, json.loads(lines[-1]) if lines else {"stdout": proc.stdout[-2000:], "stderr": proc.stderr[-2000:]}
+
+
+def test_drift_gate_holds_the_card_to_cpu_goldens_of_a_synthetic_root(tmp_path) -> None:
+    """CPU goldens of four seeded 512² frames, then the gate on the card:
+    found flags identical and every board within the JAX gate's 3 squares;
+    the command line, at the JAX gate's 35-exact floor, fails on four
+    images with exit 1 (not the skip's 42)."""
+    _need_card()
+    from chessvision_tpu_torch.synthetic import write_test_root
+    from chessvision_tpu_torch.tools import drift_gate, make_fen_goldens
+
+    root = write_test_root(tmp_path / "test", 4, seed=15)
+    goldens = tmp_path / "goldens.json"
+    make_fen_goldens.main(["--test-root", str(root), "--out", str(goldens)])
+    summary, got = drift_gate.gate(goldens, root, max_square_diff=3, min_exact=0)
+    assert (summary["backend"], summary["images"], len(got)) == ("cuda", 4, 4)
+    assert summary["failures"] == [], summary
+    rc, printed = _gate_cli("--goldens", str(goldens), "--test-root", str(root))
+    assert rc == 1, printed
+    assert printed["failures"][-1] == f"only {summary['exact']}/4 exact FEN matches (floor 35)"
+    assert {k: printed[k] for k in summary} == {**summary, "failures": printed["failures"]}
+    assert printed["device"] and "power_limit_w" in printed
+
+
+def test_drift_gate_fails_on_a_test_root_without_images_on_the_card(tmp_path) -> None:
+    _need_card()
+    (tmp_path / "batch0" / "raw").mkdir(parents=True)
+    rc, _ = _gate_cli("--test-root", str(tmp_path))
+    assert rc not in (0, 42)
+
+
+@pytest.mark.slow
+def test_card_fens_within_band_of_the_committed_cpu_goldens() -> None:
+    """The counterpart of tests/test_tpu_drift.py: the gate's defaults, the
+    JAX package's committed CPU goldens over ``data/test`` (identical found
+    flags, ≤ 3 squares a board, ≥ 35 exact)."""
+    from chessvision_tpu_torch import constants
+
+    if not (constants.data_root() / "test").is_dir():
+        pytest.skip("data/test (the test photos the goldens name) is absent")
+    rc, summary = _gate_cli(timeout=3000)
+    if rc == 42:
+        pytest.skip("no CUDA device")
+    assert rc == 0, f"the card's FENs left the band of the CPU goldens: {summary}"
+    assert summary["exact"] >= 35

@@ -388,6 +388,7 @@ def test_package_never_imports_jax() -> None:
         "ingest.merge", "tools.error_analysis", "tools.mine_warped_squares", "native_loader", "curation",
         "runstore.view", "train.sweep", "train.yolo_export", "typecheck", "tools.card", "tools.flops", "tools.bench",
         "tools.profile_stages", "tools.bench_training", "tools.mfu_accounting", "tools.sweep_arbitrate_chunk",
-        "tools.microbench",
+        "tools.microbench", "tools.make_fen_goldens", "tools.drift_gate", "tools.debug_gridfix",
+        "tools.exp_gridfix_quad",
     ):
         assert f"'chessvision_tpu_torch.{name}'" in out.stdout
