@@ -35,7 +35,7 @@ from chessvision_tpu_torch.ops.color import bgr_to_gray, create_binary_mask, hfl
 from chessvision_tpu_torch.ops.quad import find_quadrangle, scale_quadrangle
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
 from chessvision_tpu_torch.parallel.mesh import Mesh
-from chessvision_tpu_torch.utils import full_f32, resolve_device
+from chessvision_tpu_torch.utils import full_f32, host_tensor, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -222,7 +222,7 @@ class ChessVision:
     ) -> BoardExtractionResult:
         """Geometry stages from precomputed segmentation logits."""
         with torch.inference_mode(), full_f32():
-            probs = torch.sigmoid(torch.as_tensor(logits, dtype=torch.float32, device=self.device))
+            probs = torch.sigmoid(host_tensor(logits, dtype=torch.float32, device=self.device))
             binary_mask = create_binary_mask(probs, threshold).cpu().numpy()
             quad, found = find_quadrangle(probs, threshold)
             if not bool(found):
@@ -234,7 +234,7 @@ class ChessVision:
                 [[0.0, 0.0], [512.0, 0.0], [512.0, 512.0], [0.0, 512.0]], device=self.device
             )
             m = get_perspective_transform(scaled, dest)
-            gray = bgr_to_gray(torch.as_tensor(orig_image, device=self.device).float())
+            gray = bgr_to_gray(host_tensor(orig_image, device=self.device).float())
             board = hflip(warp_perspective(gray, m, constants.BOARD_SIZE))
             return BoardExtractionResult(
                 probabilities=logits,

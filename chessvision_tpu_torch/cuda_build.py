@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``build/torch_kernels/`` of the checkout, keyed on a hash of the source
 and the flags, then loaded with ``ctypes``.  A library is built at first
 use, never on import; ``build_all`` starts one ``nvcc`` per source at
-once.
+once.  Threads that reach an unbuilt kernel together wait for one build
+(a module lock); each build writes a temporary file named after its
+process and thread and moves it into place atomically, so processes that
+build at once do not collide either.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # one thread builds and loads; the others wait for it
 
 
 def _nvcc() -> str:
@@ -46,7 +51,8 @@ def _start_build(name: str, verbose: bool) -> tuple[Path, Path, subprocess.Popen
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # named after the process and the thread: no two builds share a file
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -67,17 +73,23 @@ def build_all(verbose: bool = False) -> list[str]:
     """Build every ``csrc/*.cu`` not yet built, all ``nvcc`` runs at once;
     returns the kernel names."""
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    started = {n: s for n in names if (s := _start_build(n, verbose)) is not None}
-    for n, (out, tmp, proc) in started.items():
-        _finish_build(n, out, tmp, proc, verbose)
+    with _lock:
+        started = {n: s for n in names if (s := _start_build(n, verbose)) is not None}
+        for n, (out, tmp, proc) in started.items():
+            _finish_build(n, out, tmp, proc, verbose)
     return names
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
-        started = _start_build(name, verbose=False)
-        if started is not None:
-            _finish_build(name, *started, verbose=False)
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.  A
+    failed build raises in every thread that asked for it."""
+    lib = _loaded.get(name)
+    if lib is None:
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                started = _start_build(name, verbose=False)
+                if started is not None:
+                    _finish_build(name, *started, verbose=False)
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

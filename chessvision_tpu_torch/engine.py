@@ -54,7 +54,7 @@ from chessvision_tpu_torch.ops.resize import resize
 from chessvision_tpu_torch.ops.squares import extract_squares_batch
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_perspective
 from chessvision_tpu_torch.parallel import mesh as mesh_lib
-from chessvision_tpu_torch.utils import full_f32, resolve_device
+from chessvision_tpu_torch.utils import full_f32, host_tensor, resolve_device
 
 _BOARD_W, _BOARD_H = constants.BOARD_SIZE
 _INPUT_HW = (constants.INPUT_SIZE[1], constants.INPUT_SIZE[0])
@@ -526,7 +526,7 @@ class _StreamUploader:
         """Start the upload of one batch's fields; returns the tensors on
         the device and the event that follows their copies (None on the
         CPU)."""
-        tensors = [torch.as_tensor(a) for a in fields]
+        tensors = [host_tensor(a) for a in fields]
         if not self._cuda:
             return tensors, None
         turn, self._turn = self._turn, 1 - self._turn
@@ -618,7 +618,7 @@ class Engine:
         )
 
     def _on_device(self, *arrays: Any) -> list[torch.Tensor]:
-        return [torch.as_tensor(a).to(self.device) for a in arrays]
+        return [host_tensor(a).to(self.device) for a in arrays]
 
     def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, Any]:
         """Run the pipeline on (B, H, W, 3) uint8 frames (numpy or a tensor
@@ -633,7 +633,7 @@ class Engine:
         device; on a mesh that spans processes they come back gathered from
         every rank as host numpy, on every rank (as the JAX package's do)."""
         if self.mesh is not None:
-            padded, orig = mesh_lib.pad_to_multiple(torch.as_tensor(images), self.mesh.size)
+            padded, orig = mesh_lib.pad_to_multiple(host_tensor(images), self.mesh.size)
             out = self._run_device(mesh_lib.local_rows(self.mesh, padded), threshold)
             if mesh_lib.spans_processes(self.mesh):
                 out = mesh_lib.host_gather(self.mesh, out)

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from chessvision_tpu_torch.utils import host_tensor
+
 logger = logging.getLogger(__name__)
 
 _ENV_MARKERS = (
@@ -269,7 +271,7 @@ def make_global_batch(mesh: Mesh | None, arr: Any) -> torch.Tensor:
     ``jax.make_array_from_process_local_data``.  With no mesh: the batch
     as a tensor, unmoved."""
     if mesh is None:
-        return torch.as_tensor(arr)
+        return host_tensor(arr)
     rows = local_rows(mesh, arr)
     if isinstance(rows, np.ndarray):
         rows = torch.from_numpy(np.ascontiguousarray(rows))
@@ -318,7 +320,7 @@ def host_gather(mesh: Mesh | None, tree: Any) -> Any:
     if not spans_processes(mesh):
         return _to_numpy(tree)
     assert mesh is not None
-    t = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(np.asarray(tree))
+    t = tree if isinstance(tree, torch.Tensor) else host_tensor(np.asarray(tree))
     return _to_numpy(mesh.all_gather(t))
 
 

@@ -1,10 +1,11 @@
 """Drive the PyTorch port of chessvision on NVIDIA GPUs and check it.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard]
+    python3 chip_smoke.py [--seed N] [--profile] [--cards N] [--only multicard|graft]
 
-Phases 1–15 and 17–21 need one card; phase 16 runs over every card of a
-machine that shows two or more, or over ``--cards N`` (which fails with
-fewer); ``--only multicard`` builds the kernels and runs phase 16 alone.
+Phases 1–15 and 17–22 need one card; phase 16 and phase 22 (c) run over
+every card of a machine that shows two or more, or over ``--cards N``
+(which fails with fewer); ``--only multicard`` (``--only graft``) builds
+the kernels and runs phase 16 (22) alone.
 (``--load-client``, ``--mesh-child``, ``--cli-trainers``,
 ``--multicard-child`` and ``--edges-child`` are the script's own child
 processes.)
@@ -152,11 +153,25 @@ Phases (any failure exits non-zero without the final result line):
    blend against its own ``process_batch`` FEN); ``tools/exp_gridfix_quad``
    on the card (its totals line); every K1 call of the phase held against
    its plain version, and K1 at 512²→512² timed beside its bound and
-   ``F.grid_sample`` twice.
+   ``F.grid_sample`` twice;
+22. graft entry (``graft_entry_torch.py``): ``entry()`` on the card at its
+   default B=8 (the registry's base-64 UNet and ResNet18, bfloat16, seeded
+   random weights): its outputs' keys, shapes and dtypes (``ENTRY_LAYOUT``,
+   the layout the CPU test holds against the JAX ``entry()``), K1's and
+   ``bn_act``'s launches of one call (2 and 58), every K1 and ``bn_act``
+   call held against its plain version, the warm ms of a call and both
+   kernels timed at its shapes; ``dryrun_multichip(1)`` in this process
+   (the segmentation and classification steps and ``Engine(mesh=…)`` with
+   the YOLO pair, its printed line, its K1 calls against the plain
+   version); with two or more cards, ``dryrun_multichip(N)`` over NCCL,
+   one process a card, each holding a context on its own card only; two
+   threads calling ``process_batch`` on 12 MP frames with the caller's
+   TF32 on, every call's ``comp`` equal to one thread's in full float32
+   and the flags back on after.
 
 ``bn_act``'s launches are counted over each path (zeroed just before,
 read just after) and must have risen on every path that runs the UNet
-or the ResNet18 in this process.  Phases 7–10, 13–19 and 21 also record what
+or the ResNet18 in this process.  Phases 7–10, 13–19, 21 and 22 also record what
 their path hands K1 (a streamed batch of each
 kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
@@ -168,8 +183,8 @@ server's launches must be 2 for each batch the micro-batcher ran.
 share and top ops over 3 train steps of each trainer.
 
 Output: a ``{"kernels": [...]}`` line (K1's three kernels: ``warp_pass1``
-and ``warp_pass2`` timed and counted on the main path, ``warp_fused`` on
-phase 17's photos; and ``bn_act``), the ``nvidia-smi`` name/power-limit
+and ``warp_pass2`` timed on the main path and counted on it and on phase
+22's, ``warp_fused`` on phase 17's photos; and ``bn_act``), the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
 """
 
@@ -179,6 +194,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3393,6 +3409,263 @@ def phase_testset(k1, cv, seed: int, root: str, card: str) -> tuple[int, dict]:
     return launches, rec
 
 
+# the layout of graft_entry_torch.entry()'s outputs at B frames, as tests/test_torch_graft_entry.py holds
+# it against the JAX entry()'s on the CPU (keys, shapes, dtype names)
+ENTRY_LAYOUT = {"logits": ((256, 256), "float32"), "quadrangle": ((4, 2), "float32"), "found": ((), "bool"),
+                "board_image": ((512, 512), "uint8"), "probabilities": ((64, 13), "float32")}
+DRYRUN_LINE = re.compile(
+    r"^dryrun_multichip ok on (\d+) devices: seg loss (\S+), cls loss (\S+), engine batch \((\d+), 64, 13\)$")
+
+
+@contextlib.contextmanager
+def stdout_captured(into: list):
+    """File descriptor 1 redirected to a temporary file inside the block
+    (this process's prints and its children's alike); its text is appended
+    to ``into`` and echoed after the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile(mode="w+") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+            f.seek(0)
+            into.append(f.read())
+            sys.stdout.write(into[-1])
+            sys.stdout.flush()
+
+
+def dryrun_problems(recs: list[dict], n: int, printed: str) -> list[str]:
+    """What is wrong with a ``dryrun_multichip(n)`` run: its records (ranks
+    0…n-1, the engine batch, finite losses equal on every rank) and what it
+    printed (rank 0's line, once, in the JAX script's format)."""
+    import math
+
+    problems = []
+    if [r["rank"] for r in recs] != list(range(n)) or any(r["engine_batch"] != [n, 64, 13] for r in recs):
+        problems.append(f"records {[(r['rank'], r['engine_batch']) for r in recs]}")
+    losses = {(r["seg_loss"], r["cls_loss"]) for r in recs}
+    if len(losses) != 1 or not all(math.isfinite(x) for x in next(iter(losses))):
+        problems.append(f"losses {sorted(losses)}")
+    lines = [ln for ln in printed.splitlines() if ln.startswith("dryrun_multichip")]
+    m = DRYRUN_LINE.match(lines[0]) if len(lines) == 1 else None
+    if not (m and lines[0] == recs[0]["line"] and int(m.group(1)) == n and int(m.group(4)) == n):
+        problems.append(f"printed {lines}")
+    return problems
+
+
+def tf32_threads(k1, seed: int) -> tuple[dict, dict]:
+    """Two threads call ``process_batch`` at once on four 12 MP frames (two
+    each, three times) with the caller's TF32 flags on: every call's
+    ``comp`` (the front half's matmul resize) against one thread's in full
+    float32 on the card, bit for bit, and the flags after; beside them, the
+    pixels a TF32 resize moves and those where the card's full-float32
+    ``comp`` differs from the CPU's.  Returns the record and what the
+    calls handed K1 (one call a shape)."""
+    import threading
+
+    import torch
+
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import photo_frames
+    from chessvision_tpu_torch.utils import full_f32
+
+    frames = photo_frames(seed + 3, 4, *PHOTO_SIZES["12MP"])[0]
+    xs = [torch.from_numpy(f[None]) for f in frames]
+    cpu = [engine_mod.preprocess_images(x)[0] for x in xs]
+    with torch.inference_mode(), full_f32():
+        one = [engine_mod.preprocess_images(x.cuda())[0].cpu() for x in xs]
+    engine = ChessVision(device="cuda").engine
+    engine.process_batch(frames[:1])  # warm-up
+    real = engine_mod.preprocess_images
+    seen: list = []
+
+    def recording(images):
+        comp, gray = real(images)
+        seen.append((images[0, ::97, ::89].cpu(), comp.cpu()))
+        return comp, gray
+
+    def work(rows, go, errors) -> None:
+        try:
+            go.wait(30)
+            for _ in range(3):
+                for i in rows:
+                    engine.process_batch(frames[i:i + 1])
+        except Exception as e:  # reported by the caller
+            errors.append(repr(e))
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = True, True
+    errors: list = []
+    go = threading.Barrier(2)
+    try:
+        with torch.inference_mode():
+            tf32 = [real(x.cuda())[0].cpu() for x in xs]
+        engine_mod.preprocess_images = recording
+        threads = [threading.Thread(target=work, args=(rows, go, errors)) for rows in ((0, 1), (2, 3))]
+
+        def run() -> bool:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            return any(t.is_alive() for t in threads)
+
+        alive, calls = capture_k1(k1, run, seen=set())
+        after = [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+    finally:
+        engine_mod.preprocess_images = real
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    differ = []
+    for sample, comp in seen:
+        i = next(i for i, f in enumerate(frames) if torch.equal(torch.from_numpy(f[::97, ::89]), sample))
+        differ.append(int((comp != one[i]).sum()))
+    return {"calls": len(seen), "errors": errors, "alive": alive, "flags_after": after,
+            "threads_pixels_differ": differ,
+            "tf32_pixels_differ": [int((t != o).sum()) for t, o in zip(tf32, one)],
+            "cpu_pixels_differ": [int((c != o).sum()) for c, o in zip(cpu, one)]}, calls
+
+
+def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
+    """Phase 22: ``graft_entry_torch.py``.  (a) ``entry()`` at its default
+    B=8 on the card: the outputs' layout (``ENTRY_LAYOUT``), K1's and
+    ``bn_act``'s launches of one call (zeroed just before, read just
+    after: 2 and 58), every K1 and ``bn_act`` call of it against its plain
+    version, the warm ms of a call, K1 and ``bn_act`` timed at its shapes;
+    (b) ``dryrun_multichip(1)`` in this process on the card, its K1 calls
+    against the plain version; (c) with ``cards`` ≥ 2, ``dryrun_multichip``
+    over that many cards (NCCL, a process a card), each rank holding a
+    context on its own card only (``active_contexts`` in each rank); (d)
+    ``tf32_threads``.  Returns K1's launches over (a) and (b) and the
+    phase's record."""
+    import inspect
+
+    import torch
+
+    import graft_entry_torch as graft
+    from chessvision_tpu_torch.models.layers import BatchNorm2d
+    from chessvision_tpu_torch.tools.microbench import warp_times
+
+    t_phase = time.perf_counter()
+    rec: dict = {"seconds": {}}
+    t0 = time.perf_counter()
+    fn, (images, threshold) = graft.entry()
+    fn(images, threshold)  # warm-up: cuDNN algorithm choice at the base-64 UNet's shapes
+    torch.cuda.synchronize()
+    rec["seconds"]["entry_first_call"] = time.perf_counter() - t0
+
+    # (a) one call counted and captured
+    k1.zero_launches()
+    bnk.launches = 0
+    (out, calls), bn_calls = capture_bn(lambda: capture_k1(k1, lambda: fn(images, threshold)))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    by_kernel = {k: v for k, v in k1.kernel_launches.items() if v}
+    rec["entry_launches"] = {"k1": launches, "k1_by_kernel": dict(by_kernel), "bn_act": bnk.launches}
+    if launches != 2 or by_kernel != {"warp_pass1": 1, "warp_pass2": 1} or bnk.launches != 58:
+        fail(f"graft: entry()'s call launched K1 {launches} {by_kernel} and bn_act {bnk.launches} times "
+             "(expected 2: pass 1 and pass 2; and 58)")
+    b = images.shape[0]
+    layout = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."), v.device.type) for k, v in out.items()}
+    want = {k: ((b, *shape), dtype, "cuda") for k, (shape, dtype) in ENTRY_LAYOUT.items()}
+    if layout != want or not bool(torch.isfinite(out["probabilities"]).all()):
+        fail(f"graft: entry()'s outputs {layout}, expected {want} and finite probabilities")
+    errs = check_captured(k1, calls, "graft entry")
+    for a in bn_calls:
+        check_bn(bnk, a)
+    rec["bn_act_checked"] = len(bn_calls)
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fn(images, threshold)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec["entry_ms"] = {"p50": percentile(ms, 0.5), "min": min(ms), "all": ms}
+    warp = calls["warp_twopass"][0]
+    rec["k1"] = {"shape": [list(warp[0].shape), *warp[2:]], **warp_times(*warp, 2, HBM_BYTES_PER_S)}
+    closure = inspect.getclosurevars(fn).nonlocals
+    bns = [m for part in ("extractor", "classifier") for m in closure[part].modules() if isinstance(m, BatchNorm2d)]
+    rec["bn_act"] = time_bn(bnk, bn_calls[0], next(m for m in bns if m.running_mean is bn_calls[0][1]))
+    del calls, bn_calls, warp, out
+    log(f"[graft] entry() B={b} on the card: {json.dumps({k: list(v[0]) for k, v in layout.items()})}; "
+        f"K1 {launches} launches {json.dumps(by_kernel)}, bn_act {rec['entry_launches']['bn_act']}; "
+        f"one call warm p50 {rec['entry_ms']['p50']:.2f} ms (min {rec['entry_ms']['min']:.2f}); {card}")
+    log(f"[graft] K1 at entry()'s shape {rec['k1']['shape']}: {rec['k1']['ms']:.4f} ms against its bound "
+        f"{rec['k1']['bound_ms']:.4f}, plain {rec['k1']['plain_ms']:.2f}, F.grid_sample twice "
+        f"{rec['k1']['library_ms']:.4f}; bn_act at {rec['bn_act']['shape']}: {rec['bn_act']['ms']:.4f} ms against "
+        f"its bound {rec['bn_act']['bound_ms']:.4f}, plain {rec['bn_act']['plain_ms']:.4f}, eager "
+        f"{rec['bn_act']['library_ms']:.4f}; {card}")
+
+    # (b) the dry run on a mesh of one, in this process
+    printed: list = []
+    k1.zero_launches()
+    t0 = time.perf_counter()
+    with stdout_captured(printed):
+        recs, calls = capture_k1(k1, lambda: graft.dryrun_multichip(1))
+    torch.cuda.synchronize()
+    rec["seconds"]["dryrun_1"] = time.perf_counter() - t0
+    rec["dryrun_1_launches"] = {k: v for k, v in k1.kernel_launches.items() if v}
+    launches += k1.launches
+    for name, n in rec["dryrun_1_launches"].items():
+        by_kernel[name] = by_kernel.get(name, 0) + n
+    problems = dryrun_problems(recs, 1, printed[0])
+    if recs[0]["device"] != "cuda:0" or k1.launches != 2:
+        problems.append(f"device {recs[0]['device']}, K1 launches {k1.launches}")
+    if problems:
+        fail(f"graft: dryrun_multichip(1): {problems}")
+    errs.update(check_captured(k1, calls, "graft dryrun_multichip(1)"))
+    rec["dryrun_1"] = {k: recs[0][k] for k in ("device", "seg_loss", "cls_loss", "line")}
+    del calls
+
+    # (d) two threads with the caller's TF32 on: full float32 in every call
+    t0 = time.perf_counter()
+    rec["threads"], calls = tf32_threads(k1, seed)
+    rec["seconds"]["threads"] = time.perf_counter() - t0
+    th = rec["threads"]
+    log(f"[graft] two threads, 12 calls of process_batch on 12 MP frames with TF32 on outside: comp differs "
+        f"from one thread's full-float32 comp in {th['threads_pixels_differ']} pixels; flags after "
+        f"{th['flags_after']}; a TF32 resize would move {th['tf32_pixels_differ']} pixels a frame; the card's "
+        f"full-float32 comp differs from the CPU's in {th['cpu_pixels_differ']}")
+    if th["errors"] or th["alive"] or th["calls"] != 12 or any(th["threads_pixels_differ"]) \
+            or th["flags_after"] != [True, True]:
+        fail(f"graft: two threads' process_batch: {json.dumps(th)}")
+    errs.update(check_captured(k1, calls, "graft threads"))
+    del calls
+
+    # (c) over the cards, one NCCL rank a card
+    if cards >= 2:
+        printed = []
+        t0 = time.perf_counter()
+        with stdout_captured(printed):
+            recs = graft.dryrun_multichip(cards, probe=active_contexts)
+        rec["seconds"][f"dryrun_{cards}"] = time.perf_counter() - t0
+        problems = dryrun_problems(recs, cards, printed[0])
+        for r in recs:
+            if r["backend"] != "nccl" or r["device"] != f"cuda:{r['rank']}" or r["probe"] != [r["rank"]]:
+                problems.append(f"rank {r['rank']} on {r['device']} over {r['backend']} holds contexts on cards "
+                                f"{r['probe']}, expected [{r['rank']}]")
+        if problems:
+            fail(f"graft: dryrun_multichip({cards}): {problems}")
+        rec[f"dryrun_{cards}"] = [{k: r[k] for k in ("rank", "device", "pid", "probe", "seg_loss", "cls_loss")}
+                                  for r in recs]
+        log(f"[graft] dryrun_multichip({cards}) over NCCL: each rank holds a context on its own card only "
+            f"({[r['probe'] for r in recs]}) in {rec['seconds'][f'dryrun_{cards}']:.1f} s")
+    else:
+        log("[graft] (c) dryrun_multichip over several cards needs --cards N or a machine with two or more: not run")
+    rec["launches_by_kernel"] = by_kernel
+    rec["max_abs_err"] = max(e for case in errs.values() for e in case.values())
+    # the path's bn_act launches: the counted call's, not the comparisons' and the timings'
+    bnk.launches = rec["entry_launches"]["bn_act"]
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"[graft] K1 launches {launches} {json.dumps(by_kernel)}, max |kernel - plain| {rec['max_abs_err']}; "
+        f"seconds {json.dumps(rec['seconds'])}")
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3402,7 +3675,8 @@ def main() -> int:
     ap.add_argument("--cli-trainers", nargs=4, metavar=("ROOT", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
     ap.add_argument("--cards", type=int, default=None,
                     help="run phase 16 over N cards (fails with fewer); default: every card, where there are two or more")
-    ap.add_argument("--only", choices=["multicard"], default=None, help="build the kernels, then run phase 16 alone")
+    ap.add_argument("--only", choices=["multicard", "graft"], default=None,
+                    help="build the kernels, then run phase 16 (or 22) alone")
     ap.add_argument("--multicard-child", nargs=5, metavar=("RANK", "WORLD", "PORT", "OUT", "SEED"), help=argparse.SUPPRESS)
     ap.add_argument("--edges-child", nargs=2, metavar=("OUT", "SEED"), help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3453,7 +3727,7 @@ def main() -> int:
         print(f"chip_smoke: --cards {args.cards} needs that many cards; this machine shows {n_cards}", file=sys.stderr)
         return 2
     cards = args.cards or (n_cards if n_cards >= 2 else 0)
-    if args.only and not cards:
+    if args.only == "multicard" and not cards:
         print("chip_smoke: --only multicard needs --cards N or a machine with two or more cards", file=sys.stderr)
         return 2
 
@@ -3482,6 +3756,29 @@ def main() -> int:
             "launches_by_card": by_card,
             "multicard_shapes": multicard["k1"]["times"],
         }]
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev_name, "count": n_cards}}))
+        return 0
+
+    if args.only == "graft":
+        launches_graft, graft_rec = phase_graft(k1, bnk, card, cards, args.seed)
+        t, tb = graft_rec["k1"], graft_rec["bn_act"]
+        kernels = [
+            {"name": "warp_twopass", "route": "cuda", "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
+             "replaces": "chessvision_tpu/ops/pallas_kernels.py:123", "launches": launches_graft,
+             "max_abs_err": graft_rec["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
+             "launches_by_kernel": graft_rec["launches_by_kernel"], "shape": t["shape"]},
+            {"name": "bn_act", "route": "cuda", "source": "chessvision_tpu_torch/csrc/bn_act.cu",
+             "replaces": "none: no TPU kernel; XLA's fusion of Flax's BatchNorm, ReLU and the cast "
+                         "(chessvision_tpu/models/unet.py:31, chessvision_tpu/models/resnet.py:26)",
+             "launches": graft_rec["entry_launches"]["bn_act"], "max_abs_err": 0.0, "ms": tb["ms"],
+             "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": "bytes",
+             "library_ms": tb["library_ms"], "shape": tb["shape"]},
+        ]
+        log(f"[graft] summary {json.dumps({k: v for k, v in graft_rec.items() if k not in ('k1', 'bn_act')})}")
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
@@ -3721,6 +4018,8 @@ def main() -> int:
     # -- 21. the programs that read the test set ---------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
         launches_testset, testset = counted("testset", lambda: phase_testset(k1, cv, args.seed, root, card))
+    # -- 22. graft_entry_torch.py: entry() and the dry run ------------------------------------------
+    launches_graft, graft_rec = counted("graft", lambda: phase_graft(k1, bnk, card, cards, args.seed))
     # every path that runs the UNet or the ResNet18 in this process (the YOLO pair keeps its eager
     # BatchNorm + SiLU, augmentation runs no model, the parallel and multicard ranks are processes of their own)
     idle = [p for p, n in bn_by_path.items() if n == 0 and p not in ("yolo", "augment", "parallel", "multicard")]
@@ -3728,7 +4027,8 @@ def main() -> int:
     if idle:
         fail(f"bn_act never launched on the paths {idle}")
     worst = max(worst, parallel["k1_max_abs_err"], data_res["k1_max_abs_err"], launchers["k1_max_abs_err"],
-                photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"], testset["max_abs_err"])
+                photos["max_abs_err"], edges["max_abs_err"], measure["max_abs_err"], testset["max_abs_err"],
+                graft_rec["max_abs_err"])
     log(f"[parallel] summary {json.dumps({k: v for k, v in parallel.items() if k != 'cli'})}")
     log(f"[data] summary {json.dumps(data_res)}")
     log(f"[k1] max |kernel - plain| on the augmentation inputs: {json.dumps(errs_augment)}")
@@ -3737,7 +4037,7 @@ def main() -> int:
         f"yolo {launches_yolo}, server {launches_server}, augment {launches_augment}, train {launches_train}, "
         f"eval {launches_eval}, parallel {launches_parallel} (every rank's), data {launches_data}, "
         f"launchers {launches_launchers}, photos {launches_photos}, edges {launches_edges}, "
-        f"measure {launches_measure}, memory {launches_memory}, testset {launches_testset}")
+        f"measure {launches_measure}, memory {launches_memory}, testset {launches_testset}, graft {launches_graft}")
     log(f"[train] summary {json.dumps({k: v['timing'] for k, v in train_results.items()})}")
 
     # f32 parity mode on the card (TF32 off): informational agreement with bf16
@@ -3747,19 +4047,23 @@ def main() -> int:
         f"FENs equal bf16 vs f32: {agree}/8")
 
     # K1's three kernels: the two-pass route's two, timed at the main path's B=128 512² (their launches:
-    # phases 2 and 4's pipeline calls), and the fused route's one, timed at the 12 MP photo (its launches:
-    # phase 17's pipeline calls, the path of the photos users send)
+    # phases 2 and 4's pipeline calls and phase 22's), and the fused route's one, timed at the 12 MP photo
+    # (its launches: phase 17's pipeline calls, the path of the photos users send)
     k1_launches_all = (launches + launches_stream + launches_yolo + launches_server + launches_augment
                        + launches_train + launches_eval + launches_parallel + launches_data + launches_launchers
                        + launches_photos + launches_edges + launches_measure + launches_memory
-                       + launches_testset + sum(by_card.values()))
+                       + launches_testset + launches_graft + sum(by_card.values()))
     k1_worst = max(worst, multicard["k1"]["max_abs_err"] if multicard else 0.0)
     k1_common = {"route": "cuda", "source": "chessvision_tpu_torch/csrc/hat_resample.cu",
                  "replaces": "chessvision_tpu/ops/pallas_kernels.py:123", "max_abs_err": k1_worst,
                  "bound_by": "bytes", "k1_launches_all_paths": k1_launches_all}
     photo12 = photos["k1"]["12MP"]
     kernels = [
-        {"name": f"warp_{p}", **k1_common, "launches": k1_main[f"warp_{p}"], "ms": k1_128[f"{p}_ms"],
+        {"name": f"warp_{p}", **k1_common,
+         "launches": k1_main[f"warp_{p}"] + graft_rec["launches_by_kernel"].get(f"warp_{p}", 0),
+         "launches_by_path": {"main": k1_main[f"warp_{p}"],
+                              "graft": graft_rec["launches_by_kernel"].get(f"warp_{p}", 0)},
+         "ms": k1_128[f"{p}_ms"],
          "plain_ms": k1_128[f"{p}_plain_ms"], "bound_ms": k1_128[f"{p}_floor_ms"],
          "library_ms": k1_128[f"{p}_library_ms"], "shape": k1_128["shape"]}
         for p in ("pass1", "pass2")
@@ -3805,6 +4109,7 @@ def main() -> int:
     })
     log(f"[memory] summary {json.dumps(memory)}")
     log(f"[testset] summary {json.dumps(testset)}")
+    log(f"[graft] summary {json.dumps(graft_rec)}")
     if multicard:
         kernels[0].update(launches_by_card=by_card, multicard_shapes=multicard["k1"]["times"])
         log(f"[multicard] summary {json.dumps({k: v for k, v in multicard.items() if k != 'binding'})}")

@@ -815,3 +815,119 @@ def test_card_fens_within_band_of_the_committed_cpu_goldens() -> None:
         pytest.skip("no CUDA device")
     assert rc == 0, f"the card's FENs left the band of the CPU goldens: {summary}"
     assert summary["exact"] >= 35
+
+
+# -- negatively strided frames, threads, the graft entry (the CPU cases: tests/test_torch_input_layouts.py,
+#    tests/test_torch_threads.py, tests/test_torch_graft_entry.py) -----------------------------------
+
+
+def test_pinned_raw_stream_takes_negatively_strided_frames() -> None:
+    """``run_stream(kind="raw")`` on the card stages each batch through its
+    pinned buffers: channel-reversed, mirrored and batch-reversed views
+    give ``run_device``'s outputs on their contiguous copies, bit for bit."""
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    frames = board_frames(0, 4)[0]
+    views = [frames[..., ::-1], np.flip(frames, 2), frames[::-1]]
+    assert all(any(s < 0 for s in v.strides) for v in views)
+    engine = ChessVision(device="cuda").engine
+    got = list(engine.run_stream(views, kind="raw"))
+    assert len(got) == 3
+    for g, v in zip(got, views):
+        want = engine.run_device(np.ascontiguousarray(v))
+        for k in want:
+            assert g[k].is_cuda and torch.equal(g[k], want[k]), k
+
+
+def test_two_threads_on_12mp_frames_keep_tf32_off_in_the_resize() -> None:
+    """Two threads call ``process_batch`` on 12 MP frames at once, with the
+    caller's TF32 flags on: the front half's matmul resize of every call
+    (``comp``) equals, bit for bit, one thread's in full float32 on the card
+    (which TF32 moves in ~1 000 pixels a frame), and the flags come back
+    on.  One thread's result is held to the CPU's too, within one pixel a
+    frame: on an H100 frame 0 differs in one pixel, a box sum that a
+    rounding puts on the other side of .5 (the card sums in another
+    order), and the other frames nowhere."""
+    _need_card()
+    import threading
+
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import photo_frames
+    from chessvision_tpu_torch.utils import full_f32
+
+    frames = photo_frames(3, 4, 3024, 4032)[0]
+    cpu = [engine_mod.preprocess_images(torch.from_numpy(f[None]))[0] for f in frames]
+    with torch.inference_mode(), full_f32():
+        want = [engine_mod.preprocess_images(torch.from_numpy(f[None]).cuda())[0].cpu() for f in frames]
+    assert max(int((w != c).sum()) for w, c in zip(want, cpu)) <= 1
+    engine = ChessVision(device="cuda").engine
+    engine.process_batch(frames[:1])  # warm-up
+    real = engine_mod.preprocess_images
+    seen: list = []
+
+    def recording(images):
+        comp, gray = real(images)
+        seen.append((threading.get_ident(), images[0, ::97, ::89].cpu(), comp.cpu()))
+        return comp, gray
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = True, True
+    errors: list = []
+    go = threading.Barrier(2)
+
+    def work(rows) -> None:
+        try:
+            go.wait(30)
+            for _ in range(3):
+                for i in rows:
+                    engine.process_batch(frames[i:i + 1])
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    engine_mod.preprocess_images = recording
+    try:
+        with torch.inference_mode():
+            tf32 = real(torch.from_numpy(frames[:1]).cuda())[0].cpu()
+        threads = [threading.Thread(target=work, args=(rows,)) for rows in ((0, 1), (2, 3))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        after = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    finally:
+        engine_mod.preprocess_images = real
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert not errors, errors
+    assert after == (True, True)
+    assert int((tf32 != want[0]).sum()) > 100  # what a TF32 resize would change
+    assert len(seen) == 12 and len({s[0] for s in seen}) == 2
+    for _, sample, comp in seen:
+        i = next(i for i, f in enumerate(frames) if torch.equal(torch.from_numpy(f[::97, ::89]), sample))
+        assert torch.equal(comp, want[i]), (i, int((comp != want[i]).sum()))
+
+
+def test_graft_entry_on_the_card() -> None:
+    """``graft_entry_torch.entry()`` on the card: its outputs' layout and
+    K1's and ``bn_act``'s launches of one call; ``dryrun_multichip(1)``."""
+    _need_card()
+    import graft_entry_torch as graft
+    from chessvision_tpu_torch.ops import bn_act
+
+    fn, (images, threshold) = graft.entry(batch=2)
+    fn(images, threshold)
+    torch.cuda.synchronize()
+    before_k1, before_bn = hat_resample.launches, bn_act.launches
+    out = fn(images, threshold)
+    torch.cuda.synchronize()
+    assert hat_resample.launches - before_k1 == 2 and bn_act.launches - before_bn == 58
+    assert {k: (tuple(v.shape), v.dtype, v.device.type) for k, v in out.items()} == {
+        "logits": ((2, 256, 256), torch.float32, "cuda"), "quadrangle": ((2, 4, 2), torch.float32, "cuda"),
+        "found": ((2,), torch.bool, "cuda"), "board_image": ((2, 512, 512), torch.uint8, "cuda"),
+        "probabilities": ((2, 64, 13), torch.float32, "cuda"),
+    }
+    (rec,) = graft.dryrun_multichip(1)
+    assert rec["device"] == "cuda:0" and rec["engine_batch"] == [1, 64, 13]
+    assert np.isfinite(rec["seg_loss"]) and np.isfinite(rec["cls_loss"])

@@ -351,8 +351,9 @@ def test_entry_points_raise_without_gpu() -> None:
 
 
 def test_package_never_imports_jax() -> None:
-    """Every module of the port, the port's three examples and
-    ``bench_torch.py`` import without JAX or the JAX package, and the
+    """Every module of the port, the port's three examples,
+    ``bench_torch.py`` and ``graft_entry_torch.py`` import without JAX or
+    the JAX package, and the
     port's native loader and packers never map a file of the JAX package's
     ``lib/`` (checked in the process's memory maps)."""
     code = (
@@ -367,6 +368,7 @@ def test_package_never_imports_jax() -> None:
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "    print('example', name)\n"
         "import bench_torch\n"
+        "import graft_entry_torch\n"
         "from chessvision_tpu_torch import engine, native_loader\n"
         "native_loader.available()\n"
         "engine.pack_inputs_yuv444(np.zeros((1, 512, 512, 3), np.uint8))\n"
