@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from chessvision_tpu_torch import constants, models
+from chessvision_tpu_torch import constants, models, profiling
 from chessvision_tpu_torch import weights as weights_mod
 from chessvision_tpu_torch.checkpoint import load_variables
 from chessvision_tpu_torch.chessboard import labels_to_fen
@@ -170,28 +170,29 @@ class ChessVision:
             raise AssertionError("Image must be 3-dimensional (H,W,C)")
         start_time = time.time()
         result = self.engine.process_batch(image[None], threshold=threshold, flip=flip)
-        found = bool(result.board_found[0])
-        board_result = BoardExtractionResult(
-            probabilities=result.logits[0],
-            binary_mask=result.binary_mask[0],
-            quadrangle=result.quadrangle[0] if found else None,
-            board_image=result.board_image[0] if found else None,
-        )
-        position_result = None
-        if found:
-            position_result = PositionResult(
-                fen=result.fens[0],
-                original_fen=result.original_fens[0],
-                model_probabilities=result.probabilities[0],
-                squares=ChessVision.extract_squares(result.board_image[0]),
-                square_names=result.extra["square_names"],
-                validation_fixes=result.validation_fixes[0],
+        with profiling.span("facade"):
+            found = bool(result.board_found[0])
+            board_result = BoardExtractionResult(
+                probabilities=result.logits[0],
+                binary_mask=result.binary_mask[0],
+                quadrangle=result.quadrangle[0] if found else None,
+                board_image=result.board_image[0] if found else None,
             )
-        return ChessVisionResult(
-            board_extraction=board_result,
-            position=position_result,
-            processing_time=time.time() - start_time,
-        )
+            position_result = None
+            if found:
+                position_result = PositionResult(
+                    fen=result.fens[0],
+                    original_fen=result.original_fens[0],
+                    model_probabilities=result.probabilities[0],
+                    squares=ChessVision.extract_squares(result.board_image[0]),
+                    square_names=result.extra["square_names"],
+                    validation_fixes=result.validation_fixes[0],
+                )
+            return ChessVisionResult(
+                board_extraction=board_result,
+                position=position_result,
+                processing_time=time.time() - start_time,
+            )
 
     def extract_board(self, image: np.ndarray, threshold: float = 0.5) -> BoardExtractionResult:
         """Extract the chessboard from a BGR image."""

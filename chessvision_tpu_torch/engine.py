@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from chessvision_tpu_torch import constants
+from chessvision_tpu_torch import constants, profiling
 from chessvision_tpu_torch.chessboard import labels_to_fen
 from chessvision_tpu_torch.cv_types import BatchResult, ValidationFix
 from chessvision_tpu_torch.ops import gridfix
@@ -87,9 +87,10 @@ _MISSING_KING_FLOOR = 0.05
 def preprocess_images(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """uint8 (B, H, W, 3) BGR frames → (comp, gray), both uint8: the exact
     area resize to the segmentation input and the exact fixed-point gray."""
-    comp = resize(images, _INPUT_HW, round_uint8=True)
-    gray = bgr_to_gray(images, exact_u8=True)
-    return comp, gray
+    with profiling.span("front"):
+        comp = resize(images, _INPUT_HW, round_uint8=True)
+        gray = bgr_to_gray(images, exact_u8=True)
+        return comp, gray
 
 
 # BT.601 luma weights of the fixed-point gray (ops/color.py):
@@ -319,20 +320,21 @@ def _arbitrate_chunk(
     """Classify the nominal and the grid-corrected board and blend their
     probabilities by a sigmoid of the confidence gap; the board and quad
     go to the better side."""
-    b0 = wide[:, margin : margin + _BOARD_H, margin : margin + _BOARD_W]
-    b1 = gridfix.apply_correction(wide, corr, margin=margin)
-    q1 = gridfix.refined_quadrangle(ms, corr)
-    p0 = _classify_squares(classifier, outputs_probabilities, hflip(b0))
-    p1 = _classify_squares(classifier, outputs_probabilities, hflip(b1))
-    # mean top-1 probability over the 64 squares
-    conf0 = p0.amax(dim=-1).mean(dim=-1)
-    conf1 = p1.amax(dim=-1).mean(dim=-1)
-    gap = conf1 - conf0
-    wgt = torch.sigmoid(gap / _ARBITRATE_TAU)[:, None, None]
-    probs = wgt * p1 + (1.0 - wgt) * p0
-    use = gap > 0
-    bsel = torch.where(use[:, None, None], b1, b0)
-    return probs, bsel, q1, use
+    with profiling.span("arbitrate"):
+        b0 = wide[:, margin : margin + _BOARD_H, margin : margin + _BOARD_W]
+        b1 = gridfix.apply_correction(wide, corr, margin=margin)
+        q1 = gridfix.refined_quadrangle(ms, corr)
+        p0 = _classify_squares(classifier, outputs_probabilities, hflip(b0))
+        p1 = _classify_squares(classifier, outputs_probabilities, hflip(b1))
+        # mean top-1 probability over the 64 squares
+        conf0 = p0.amax(dim=-1).mean(dim=-1)
+        conf1 = p1.amax(dim=-1).mean(dim=-1)
+        gap = conf1 - conf0
+        wgt = torch.sigmoid(gap / _ARBITRATE_TAU)[:, None, None]
+        probs = wgt * p1 + (1.0 - wgt) * p0
+        use = gap > 0
+        bsel = torch.where(use[:, None, None], b1, b0)
+        return probs, bsel, q1, use
 
 
 def _pipeline_core(
@@ -355,25 +357,31 @@ def _pipeline_core(
     margin = _REFINE_MARGIN
     b, h, _ = gray.shape
     dev = gray.device
-    seg_logits = extractor(comp_f32 / 255.0)[..., 0].float()
-    probs = torch.sigmoid(seg_logits)
-    quad, found = find_quadrangle_batch(probs, threshold)
-    quad_scaled = scale_quadrangle(quad, float(h), constants.INPUT_SIZE[1])
-    dest = torch.from_numpy(_DEST).to(dev)
-    safe_quad = torch.where(found[:, None, None], quad_scaled, dest)
-    ms = get_perspective_transform(safe_quad, dest.expand(b, 4, 2))
+    with profiling.span("extractor"):
+        seg_logits = extractor(comp_f32 / 255.0)[..., 0].float()
+        probs = torch.sigmoid(seg_logits)
+    with profiling.span("quad"):
+        quad, found = find_quadrangle_batch(probs, threshold)
+    with profiling.span("warp"):
+        quad_scaled = scale_quadrangle(quad, float(h), constants.INPUT_SIZE[1])
+        dest = torch.from_numpy(_DEST).to(dev)
+        safe_quad = torch.where(found[:, None, None], quad_scaled, dest)
+        ms = get_perspective_transform(safe_quad, dest.expand(b, 4, 2))
+        if refine == "off":
+            boards_sel = warp_perspective(gray, ms, constants.BOARD_SIZE)
+        else:
+            ms_wide = get_perspective_transform(safe_quad, (dest + float(margin)).expand(b, 4, 2))
+            wide = warp_perspective(gray, ms_wide, (_BOARD_W + 2 * margin, _BOARD_H + 2 * margin))
 
     if refine == "off":
-        boards_sel = warp_perspective(gray, ms, constants.BOARD_SIZE)
         quad_out = quad_scaled
         cls_probs = _classify_squares(classifier, classifier_outputs_probabilities, hflip(boards_sel))
     else:
-        ms_wide = get_perspective_transform(safe_quad, (dest + float(margin)).expand(b, 4, 2))
-        wide = warp_perspective(gray, ms_wide, (_BOARD_W + 2 * margin, _BOARD_H + 2 * margin))
         boards0 = wide[:, margin : margin + _BOARD_H, margin : margin + _BOARD_W]
-        # detection sees the uint8-rounded board
-        rounded = torch.clamp(torch.floor(boards0 + 0.5), 0, 255)
-        corr = gridfix.detect_grid(rounded)
+        with profiling.span("gridfix"):
+            # detection sees the uint8-rounded board
+            rounded = torch.clamp(torch.floor(boards0 + 0.5), 0, 255)
+            corr = gridfix.detect_grid(rounded)
         if refine == "detect":
             boards_sel = gridfix.apply_correction(wide, corr, margin=margin)
             quad_out = gridfix.refined_quadrangle(ms, corr)
@@ -417,88 +425,97 @@ def validate_labels_batch(
     king-probable square if that probability clears the floor, never
     displacing the other king or a square rules 1–2 already fixed.
     """
-    b = probabilities.shape[0]
-    preds = np.argmax(probabilities, axis=-1)  # (B, 64)
-    labels = np.asarray(constants.LABEL_NAMES, dtype=object)[preds]
+    with profiling.span("validate"):
+        b = probabilities.shape[0]
+        preds = np.argmax(probabilities, axis=-1)  # (B, 64)
+        labels = np.asarray(constants.LABEL_NAMES, dtype=object)[preds]
 
-    pawn_idx = {constants.LABEL_INDICES["P"], constants.LABEL_INDICES["p"]}
-    king_idx = {constants.LABEL_INDICES["K"], constants.LABEL_INDICES["k"]}
-    invalid_rows = [i for i, name in enumerate(square_names) if name in constants.INVALID_PAWN_SQUARES]
-    back_rank = set(invalid_rows)
+        pawn_idx = {constants.LABEL_INDICES["P"], constants.LABEL_INDICES["p"]}
+        king_idx = {constants.LABEL_INDICES["K"], constants.LABEL_INDICES["k"]}
+        invalid_rows = [i for i, name in enumerate(square_names) if name in constants.INVALID_PAWN_SQUARES]
+        back_rank = set(invalid_rows)
 
-    all_labels: list[list[str]] = []
-    all_fixes: list[list[ValidationFix]] = []
-    order = np.argsort(-probabilities[:, invalid_rows, :], axis=-1)  # (B, 16, 13)
-    for bi in range(b):
-        row_labels = list(labels[bi])
-        fixes: list[ValidationFix] = []
-        for ii, sq in enumerate(invalid_rows):
-            if preds[bi, sq] in pawn_idx:
-                for alt in order[bi, ii]:
-                    if int(alt) not in pawn_idx:
-                        alt_piece = constants.LABEL_NAMES[int(alt)]
-                        fixes.append(ValidationFix(square_names[sq], row_labels[sq], alt_piece, "no_pawns_on_ends"))
-                        row_labels[sq] = alt_piece
-                        break
-        for king in ("K", "k"):
-            ki = constants.LABEL_INDICES[king]
-            claimants = [sq for sq in range(64) if row_labels[sq] == king]
-            if len(claimants) <= 1:
-                continue
-            claimants.sort(key=lambda sq: -float(probabilities[bi, sq, ki]))
-            for sq in claimants[1:]:
-                banned = king_idx | (pawn_idx if sq in back_rank else set())
-                for alt in np.argsort(-probabilities[bi, sq]):
-                    if int(alt) not in banned:
-                        alt_piece = constants.LABEL_NAMES[int(alt)]
-                        fixes.append(ValidationFix(square_names[sq], king, alt_piece, "one_king_per_color"))
-                        row_labels[sq] = alt_piece
-                        break
-        touched = {f.square_name for f in fixes}
-        for king, other in (("K", "k"), ("k", "K")):
-            ki = constants.LABEL_INDICES[king]
-            if any(lab == king for lab in row_labels):
-                continue
-            for sq in map(int, np.argsort(-probabilities[bi, :, ki])):
-                if float(probabilities[bi, sq, ki]) < _MISSING_KING_FLOOR:
-                    break
-                if row_labels[sq] == other or square_names[sq] in touched:
+        all_labels: list[list[str]] = []
+        all_fixes: list[list[ValidationFix]] = []
+        order = np.argsort(-probabilities[:, invalid_rows, :], axis=-1)  # (B, 16, 13)
+        for bi in range(b):
+            row_labels = list(labels[bi])
+            fixes: list[ValidationFix] = []
+            for ii, sq in enumerate(invalid_rows):
+                if preds[bi, sq] in pawn_idx:
+                    for alt in order[bi, ii]:
+                        if int(alt) not in pawn_idx:
+                            alt_piece = constants.LABEL_NAMES[int(alt)]
+                            fixes.append(ValidationFix(square_names[sq], row_labels[sq], alt_piece, "no_pawns_on_ends"))
+                            row_labels[sq] = alt_piece
+                            break
+            for king in ("K", "k"):
+                ki = constants.LABEL_INDICES[king]
+                claimants = [sq for sq in range(64) if row_labels[sq] == king]
+                if len(claimants) <= 1:
                     continue
-                fixes.append(ValidationFix(square_names[sq], row_labels[sq], king, "missing_king"))
-                row_labels[sq] = king
-                break
-        all_labels.append(row_labels)
-        all_fixes.append(fixes)
-    return all_labels, all_fixes
+                claimants.sort(key=lambda sq: -float(probabilities[bi, sq, ki]))
+                for sq in claimants[1:]:
+                    banned = king_idx | (pawn_idx if sq in back_rank else set())
+                    for alt in np.argsort(-probabilities[bi, sq]):
+                        if int(alt) not in banned:
+                            alt_piece = constants.LABEL_NAMES[int(alt)]
+                            fixes.append(ValidationFix(square_names[sq], king, alt_piece, "one_king_per_color"))
+                            row_labels[sq] = alt_piece
+                            break
+            touched = {f.square_name for f in fixes}
+            for king, other in (("K", "k"), ("k", "K")):
+                ki = constants.LABEL_INDICES[king]
+                if any(lab == king for lab in row_labels):
+                    continue
+                for sq in map(int, np.argsort(-probabilities[bi, :, ki])):
+                    if float(probabilities[bi, sq, ki]) < _MISSING_KING_FLOOR:
+                        break
+                    if row_labels[sq] == other or square_names[sq] in touched:
+                        continue
+                    fixes.append(ValidationFix(square_names[sq], row_labels[sq], king, "missing_king"))
+                    row_labels[sq] = king
+                    break
+            all_labels.append(row_labels)
+            all_fixes.append(fixes)
+        return all_labels, all_fixes
 
 
 def _copy_back(out: dict[str, torch.Tensor], keys: Sequence[str]) -> dict[str, np.ndarray]:
-    """The named device outputs as host numpy arrays (waits for the device)."""
-    return {k: out[k].cpu().numpy() for k in keys}
+    """The named device outputs as host numpy arrays.  It first waits for
+    the device's stream, as the first copy would, so that the wait has a
+    span of its own (``device_wait``)."""
+    with profiling.span("copy_back"):
+        with profiling.span("device_wait"):
+            for dev in {out[k].device for k in keys}:
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+        return {k: out[k].cpu().numpy() for k in keys}
 
 
 def _binary_mask(logits: np.ndarray, threshold: float) -> np.ndarray:
     """Host-side threshold mask of the segmentation logits, uint8 in {0, 255}."""
-    with np.errstate(over="ignore"):
+    with profiling.span("mask"), np.errstate(over="ignore"):
         probs_mask = 1.0 / (1.0 + np.exp(-logits, dtype=np.float32))
-    return np.where(probs_mask > threshold, np.uint8(255), np.uint8(0))
+        return np.where(probs_mask > threshold, np.uint8(255), np.uint8(0))
 
 
 def _fen_strings(
     probs: np.ndarray, validated: list[list[str]], found: np.ndarray, square_names: list[str]
 ) -> tuple[list[str], list[str]]:
     """(validated FENs, argmax FENs) of a batch; "" where no board was found."""
-    labels = np.asarray(constants.LABEL_NAMES, dtype=object)[np.argmax(probs, axis=-1)]
-    fens: list[str] = []
-    original_fens: list[str] = []
-    for bi in range(len(found)):
-        if not found[bi]:
-            original_fens.append("")
-            fens.append("")
-            continue
-        original_fens.append(labels_to_fen(list(labels[bi]), square_names))
-        fens.append(labels_to_fen(validated[bi], square_names))
-    return fens, original_fens
+    with profiling.span("fen"):
+        labels = np.asarray(constants.LABEL_NAMES, dtype=object)[np.argmax(probs, axis=-1)]
+        fens: list[str] = []
+        original_fens: list[str] = []
+        for bi in range(len(found)):
+            if not found[bi]:
+                original_fens.append("")
+                fens.append("")
+                continue
+            original_fens.append(labels_to_fen(list(labels[bi]), square_names))
+            fens.append(labels_to_fen(validated[bi], square_names))
+        return fens, original_fens
 
 
 class _StreamUploader:
@@ -526,30 +543,31 @@ class _StreamUploader:
         """Start the upload of one batch's fields; returns the tensors on
         the device and the event that follows their copies (None on the
         CPU)."""
-        tensors = [host_tensor(a) for a in fields]
-        if not self._cuda:
-            return tensors, None
-        turn, self._turn = self._turn, 1 - self._turn
-        if self._events[turn] is not None:
-            self._events[turn].synchronize()
-        staged = []
-        # on this engine's card throughout: the pinned buffers go through its
-        # context, and ``torch.cuda.stream`` entered from another current
-        # card switches back to that card on exit, which opens a context there
-        with torch.cuda.device(self.device):
-            for i, t in enumerate(tensors):
-                buf = self._slots[turn].get(i)
-                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    self._slots[turn][i] = buf
-                buf.copy_(t)
-                staged.append(buf)
-            with torch.cuda.stream(self._copy_stream):
-                on_device = [t.to(self.device, non_blocking=True) for t in staged]
-                event = torch.cuda.Event()
-                event.record(self._copy_stream)
-        self._events[turn] = event
-        return on_device, event
+        with profiling.span("stream.stage"):
+            tensors = [host_tensor(a) for a in fields]
+            if not self._cuda:
+                return tensors, None
+            turn, self._turn = self._turn, 1 - self._turn
+            if self._events[turn] is not None:
+                self._events[turn].synchronize()
+            staged = []
+            # on this engine's card throughout: the pinned buffers go through its
+            # context, and ``torch.cuda.stream`` entered from another current
+            # card switches back to that card on exit, which opens a context there
+            with torch.cuda.device(self.device):
+                for i, t in enumerate(tensors):
+                    buf = self._slots[turn].get(i)
+                    if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        self._slots[turn][i] = buf
+                    buf.copy_(t)
+                    staged.append(buf)
+                with torch.cuda.stream(self._copy_stream):
+                    on_device = [t.to(self.device, non_blocking=True) for t in staged]
+                    event = torch.cuda.Event()
+                    event.record(self._copy_stream)
+            self._events[turn] = event
+            return on_device, event
 
     def take(self, upload: tuple[list[torch.Tensor], Any]) -> list[torch.Tensor]:
         """Make the current stream wait for an upload that ``put`` started,
@@ -618,7 +636,8 @@ class Engine:
         )
 
     def _on_device(self, *arrays: Any) -> list[torch.Tensor]:
-        return [host_tensor(a).to(self.device) for a in arrays]
+        with profiling.span("upload"):
+            return [host_tensor(a).to(self.device) for a in arrays]
 
     def run_device(self, images: np.ndarray | torch.Tensor, threshold: float = 0.5) -> dict[str, Any]:
         """Run the pipeline on (B, H, W, 3) uint8 frames (numpy or a tensor
@@ -712,7 +731,10 @@ class Engine:
             out = run(*uploader.take(current), threshold)
             nxt = next(it, None)
             pending = put(nxt) if nxt is not None else None
-            yield out
+            # the stream is in its caller's hands and dispatches nothing
+            # until it is resumed (or closed)
+            with profiling.span("stream.caller"):
+                yield out
             if pending is None:
                 return
             current = pending

@@ -1,13 +1,18 @@
 """Tracing and timing utilities of the port (counterpart of
 ``chessvision_tpu/profiling.py``).
 
-``trace`` captures a ``torch.profiler`` trace around any region and writes
-it as a Chrome trace (Perfetto reads it); ``time_fn`` is a synchronized
-wall-clock timer; ``profile_engine_stages`` times the pipeline's stages
-one at a time.  ``stage_breakdown``, ``device_busy`` and ``upload_overlap``
-take apart one ``Engine.process_batch`` / ``run_stream`` call.  On the GPU
-every timed call ends in ``torch.cuda.synchronize``: PyTorch returns before
-the device has finished, so a host clock without one measures the enqueue.
+``span`` is the port's one way to mark a stage: the engine and the facade
+open a ``cv:<stage>`` span at each stage boundary, which a running
+``torch.profiler`` records on its own clock beside the device's events and
+which costs about a microsecond when nothing records.  ``trace`` captures a
+``torch.profiler`` trace around any region and writes it as a Chrome trace
+(Perfetto reads it, spans included); ``time_fn`` is a synchronized
+wall-clock timer; ``profile_engine_stages`` times the pipeline's stages one
+at a time.  ``stage_breakdown`` (the spans' host self times),
+``device_busy`` and ``upload_overlap`` take apart one
+``Engine.process_batch`` / ``run_stream`` call.  On the GPU every timed
+call ends in ``torch.cuda.synchronize``: PyTorch returns before the device
+has finished, so a host clock without one measures the enqueue.
 """
 
 from __future__ import annotations
@@ -16,14 +21,12 @@ import contextlib
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
 from chessvision_tpu_torch import constants
-from chessvision_tpu_torch import engine as engine_mod
-from chessvision_tpu_torch.ops import gridfix
 from chessvision_tpu_torch.ops.color import bgr_to_gray, hflip
 from chessvision_tpu_torch.ops.quad import find_quadrangle_batch
 from chessvision_tpu_torch.ops.resize import resize
@@ -32,6 +35,25 @@ from chessvision_tpu_torch.ops.warp import get_perspective_transform, warp_persp
 from chessvision_tpu_torch.parallel import mesh as mesh_lib
 from chessvision_tpu_torch.synthetic import board_frames
 from chessvision_tpu_torch.utils import full_f32
+
+SPAN_PREFIX = "cv:"
+
+# torch.profiler.record_function costs about ten microseconds a span even
+# with no profiler running, and it records a user annotation, which Kineto
+# mirrors onto the device's timeline, where a trace reader would count it
+# as device work.  The private _RecordFunctionFast records a plain cpu_op
+# on the profiler's clock, puts nothing on the device's timeline and
+# launches nothing, and costs under a microsecond when nothing records.
+# This is the port's one use of it: a torch upgrade that moves it touches
+# only this line.
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str) -> Any:
+    """A context manager that marks the enclosed host work as the span
+    ``cv:<name>`` while a ``torch.profiler`` records (``trace`` writes it
+    out with the rest); it does nothing else."""
+    return _RecordFunctionFast(SPAN_PREFIX + name)
 
 
 def _sync(device: torch.device | None = None) -> None:
@@ -132,69 +154,82 @@ def profile_engine_stages(cv_model: Any, batch_size: int = 32, iters: int = 5) -
         }
 
 
-def stage_breakdown(engine: Any, frames: np.ndarray, iters: int) -> tuple[dict[str, float], float]:
-    """Mean synchronized wall time (ms) of each step inside
-    ``engine.process_batch(frames)``, device stages and host steps alike
-    (``upload`` is the frames' copy to the device, ``_copy_back`` the
-    outputs' copy to the host, ``_binary_mask`` the host sigmoid and
-    threshold, ``_fen_strings`` the FEN assembly); "other" is the rest
-    (homographies, rounding, the result object).  Returns (stages, total)."""
-    acc: dict[str, float] = {}
-
-    def timed(name: str, fn: Callable[..., Any]) -> Callable[..., Any]:
-        def run(*a: Any, **k: Any) -> Any:
-            _sync(engine.device)
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            _sync(engine.device)
-            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-            return out
-
-        return run
-
-    targets = [
-        (engine, "_on_device", "upload"),
-        (engine, "_extractor", "unet"),
-        (engine_mod, "preprocess_images", None),
-        (engine_mod, "find_quadrangle_batch", None),
-        (engine_mod, "warp_perspective", None),
-        (gridfix, "detect_grid", None),
-        (engine_mod, "_arbitrate_chunk", None),
-        (engine_mod, "_copy_back", None),
-        (engine_mod, "_binary_mask", None),
-        (engine_mod, "validate_labels_batch", None),
-        (engine_mod, "_fen_strings", None),
-    ]
-    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
-    try:
-        for (owner, attr, fn), (_, _, label) in zip(saved, targets):
-            setattr(owner, attr, timed(label or attr, fn))
-        totals = wall_ms(engine.process_batch, frames, iters=iters, device=engine.device)
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
-    stages = {k: v / iters for k, v in acc.items()}
-    total = sum(totals) / iters
+def stage_breakdown(engine: Any, frames: np.ndarray) -> tuple[dict[str, float], float]:
+    """Where the host's time goes in one profiled ``engine.process_batch(frames)``
+    call: the host self time (ms) of each ``cv:`` span, keyed by the stage's
+    name (``upload``, ``extractor``, ``copy_back``, ``device_wait``, ``mask``,
+    ...; ``arbitrate`` summed over its chunks), and "other" the rest of the
+    call's wall time.  A device stage's span holds only its launches: the
+    host's wait for the device shows in ``device_wait``.  Returns (stages,
+    the call's wall ms)."""
+    _sync(engine.device)
+    with _profiler() as prof:
+        t0 = time.perf_counter()
+        engine.process_batch(frames)
+        _sync(engine.device)
+        total = (time.perf_counter() - t0) * 1e3
+    stages = span_self_ms(prof)
     stages["other"] = total - sum(stages.values())
     return stages, total
+
+
+def span_self_ms(prof: Any) -> dict[str, float]:
+    """Host self time (ms) of each name of a profiled region's ``cv:``
+    spans, its prefix removed: each span's length less the parts that its
+    child spans cover, summed over the spans of one name.  Spans nest (one
+    thread opens and closes them in order)."""
+    spans = sorted(
+        ((e.time_range.start, e.time_range.end, e.name[len(SPAN_PREFIX):]) for e in prof.events()
+         if e.device_type != torch.autograd.DeviceType.CUDA and e.name.startswith(SPAN_PREFIX)),
+        key=lambda s: (s[0], -s[1]),
+    )
+    out: dict[str, float] = {}
+    open_: list[list[Any]] = []  # [start, end, name, time covered by children]
+
+    def close() -> None:
+        a, b, name, inner = open_.pop()
+        out[name] = out.get(name, 0.0) + (b - a - inner) / 1e3
+
+    for a, b, name in spans:
+        while open_ and open_[-1][1] <= a:
+            close()
+        if open_:
+            open_[-1][3] += b - a
+        open_.append([a, b, name, 0.0])
+    while open_:
+        close()
+    return out
 
 
 def _device_events(prof: Any) -> list[Any]:
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _union(intervals: Iterable[tuple[float, float]]) -> list[tuple[float, float]]:
+    """Sorted, disjoint intervals covering the same points."""
+    merged: list[list[float]] = []
+    for start, end in sorted(intervals):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    return [(a, b) for a, b in merged]
+
+
 def device_busy(fn: Callable[[], Any]) -> tuple[float, float, str]:
     """(device busy ms, wall ms, table of the top ops by device time) of one
-    synchronized call of ``fn`` under torch.profiler."""
+    synchronized call of ``fn`` under torch.profiler.  Busy is the length of
+    the union of the device events' intervals (kernels, copies and fills on
+    any stream), so two streams' overlap counts once."""
     _sync()
     with _profiler() as prof:
         t0 = time.perf_counter()
         fn()
         _sync()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.device_time_total for e in _device_events(prof)) / 1e3
+    busy = sum(b - a for a, b in _union((e.time_range.start, e.time_range.end) for e in _device_events(prof)))
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15)
-    return busy, wall, table
+    return busy / 1e3, wall, table
 
 
 def upload_overlap(prof: Any) -> dict[str, float]:
@@ -204,18 +239,13 @@ def upload_overlap(prof: Any) -> dict[str, float]:
     kernels' intervals, ``kernels_ms`` that union's length."""
     copies, kernels = [], []
     for e in _device_events(prof):
-        span = (e.time_range.start, e.time_range.end)
+        interval = (e.time_range.start, e.time_range.end)
         if "memcpy" in e.name.lower():
             if "htod" in e.name.lower():
-                copies.append(span)
+                copies.append(interval)
         elif "memset" not in e.name.lower():
-            kernels.append(span)
-    merged: list[list[float]] = []
-    for start, end in sorted(kernels):
-        if merged and start <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], end)
-        else:
-            merged.append([start, end])
+            kernels.append(interval)
+    merged = _union(kernels)
     under = 0.0
     for c0, c1 in copies:
         under += sum(max(0.0, min(c1, k1) - max(c0, k0)) for k0, k1 in merged)

@@ -177,8 +177,8 @@ kind, the YOLO call, every batch the server's burst ran: batch 1 up to 16)
 and hold the kernel against its plain version on those inputs; the
 server's launches must be 2 for each batch the micro-batcher ran.
 
-``--profile`` adds stage times (device stages and the host steps of
-``process_batch``), the device's busy share, peak memory, how much of
+``--profile`` adds the host self time of each stage span of one
+``process_batch`` call, the device's busy share, peak memory, how much of
 ``run_stream``'s upload time lies under kernels, and the device's busy
 share and top ops over 3 train steps of each trainer.
 
@@ -2675,9 +2675,9 @@ def phase_photos(k1, cv, seed: int) -> tuple[int, dict]:
         f"{json.dumps({k: round(v, 1) for k, v in cold.items()})})")
     rec["stages"] = {}
     for name in ("12MP", "48MP"):
-        stages, total = profiling.stage_breakdown(engine, frames[name], iters=3)
+        stages, total = profiling.stage_breakdown(engine, frames[name])
         rec["stages"][name] = {"total_ms": total, **stages}
-        log(f"[photos] stages of process_batch B=1 {name}, {total:.2f} ms (stages synchronized): "
+        log(f"[photos] stages of process_batch B=1 {name}, {total:.2f} ms profiled (host self ms by span): "
             + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     rec["k1"] = {}
     for name in PHOTO_SIZES:
@@ -3961,8 +3961,8 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         del x_chunk
         for name, frames in ((f"B={bsz}", frames128), ("B=1", one)):
-            stages, total = profiling.stage_breakdown(engine, frames, iters=3)
-            log(f"[stages] {name} process_batch {total:.2f} ms (stages synchronized): "
+            stages, total = profiling.stage_breakdown(engine, frames)
+            log(f"[stages] {name} process_batch {total:.2f} ms profiled (host self ms by span): "
                 + json.dumps({k: round(v, 3) for k, v in stages.items()}))
             busy, wall, table = profiling.device_busy(lambda: engine.process_batch(frames))
             log(f"[profile] {name} process_batch: device busy {busy:.2f} ms of {wall:.2f} ms wall "

@@ -931,3 +931,71 @@ def test_graft_entry_on_the_card() -> None:
     (rec,) = graft.dryrun_multichip(1)
     assert rec["device"] == "cuda:0" and rec["engine_batch"] == [1, 64, 13]
     assert np.isfinite(rec["seg_loss"]) and np.isfinite(rec["cls_loss"])
+
+
+_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                           "cudaGraphLaunch", "cudaLaunchCooperativeKernel"})
+
+
+@pytest.mark.parametrize("call", ["process_batch_b8", "process_image_12mp"])
+def test_stage_spans_put_nothing_on_the_device_and_launch_nothing(call, monkeypatch) -> None:
+    """A profiled call records its ``cv:`` spans on the host only (no
+    device event carries a span's name) and launches as many kernels as
+    the same call with every span replaced by a ``nullcontext``."""
+    _need_card()
+    import contextlib
+
+    from chessvision_tpu_torch import profiling
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames, photo_frames
+
+    cv = ChessVision(device="cuda")
+    if call == "process_batch_b8":
+        frames = board_frames(0, 8)[0]
+
+        def fn():
+            return cv.engine.process_batch(frames)
+    else:
+        photo = photo_frames(0, 1, 3024, 4032)[0][0]
+
+        def fn():
+            return cv.process_image(photo)
+
+    fn()
+    torch.cuda.synchronize()
+
+    def profiled():
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return list(prof.events())
+
+    cuda = torch.autograd.DeviceType.CUDA
+    traced = profiled()
+    spans = [e for e in traced if e.name.startswith(profiling.SPAN_PREFIX)]
+    assert len(spans) >= 12 and any(e.device_type == cuda for e in traced)
+    assert [e.name for e in traced if e.device_type == cuda and profiling.SPAN_PREFIX in e.name] == []
+    assert not any(e.is_user_annotation for e in spans)
+    monkeypatch.setattr(profiling, "span", lambda name: contextlib.nullcontext())
+    plain = profiled()
+    assert not any(e.name.startswith(profiling.SPAN_PREFIX) for e in plain)
+    launches = [sum(e.name in _LAUNCH_CALLS for e in events) for events in (traced, plain)]
+    assert launches[0] == launches[1] > 0, launches
+
+
+def test_stage_breakdown_on_the_card() -> None:
+    """``profiling.stage_breakdown`` of a B=8 ``process_batch``: every
+    stage's host self time, the host's wait for the device among them."""
+    _need_card()
+    from chessvision_tpu_torch import profiling
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    engine = ChessVision(device="cuda").engine
+    frames = board_frames(0, 8)[0]
+    engine.process_batch(frames)
+    stages, total = profiling.stage_breakdown(engine, frames)
+    assert set(stages) == {"upload", "front", "extractor", "quad", "warp", "gridfix", "arbitrate", "copy_back",
+                           "device_wait", "mask", "validate", "fen", "other"}  # fmt: skip
+    assert stages["device_wait"] > 0 and abs(sum(stages.values()) - total) < 1e-6
