@@ -7,21 +7,37 @@ time); every step here carries the batch axis:
 2. dominant component at half resolution (2×2 OR-pool): rounds of
    row/column run-id reachability, then upsample and AND with the mask;
 3. 64 hull support points from the per-row extremes;
-4. deviation decimation down to 4 corners (60 sequential steps, a Python
-   loop over batched tensors), then the reference's corner order;
+4. deviation decimation down to 4 corners (60 sequential steps), then the
+   reference's corner order;
 5. the area, ratio, small-board, fit and convexity gates.
 
 Corners are pixel coordinates and every gate is exact float arithmetic
 on small integers, so the corners and ``found`` flags equal the JAX
 package's on the same masks.
+
+The decimation has a hand-written CUDA kernel, ``csrc/quad.cu``: one warp
+a board does all the steps in one launch, where the eager loop launches 28
+small kernels a step.
+
+- ``decimate_to_quad``: on CUDA tensors one kernel launch or the call
+  raises; on CPU (and meta) tensors the plain version.
+- ``decimate_to_quad_plain``: the loop of batched eager ops; only CPU
+  tensors take it in the wrapper, and on the card it is what the kernel
+  is compared with, bit for bit.
+- ``launches``: kernel launches so far; an empty batch reaches the
+  launcher, which launches nothing and says so, and does not count.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+
+from chessvision_tpu_torch import cuda_build
 
 NUM_DIRECTIONS = 64
 FLOOD_ROUNDS = 3
@@ -30,6 +46,14 @@ MIN_AREA_PERCENTAGE = 0.35
 MAX_AREA_PERCENTAGE = 1.0
 SMALL_BOARD_MIN_AREA = 0.05
 MIN_RATIO_BOUNDING = 0.6
+
+# points a polygon the decimation kernel takes (8 a lane of its warp)
+MIN_POINTS, MAX_POINTS = 4, 256
+
+launches = 0
+
+# the launcher's return when the batch is empty
+_NOTHING_LAUNCHED = -1
 
 
 def _flood_pass_rows(mask: torch.Tensor, visited: torch.Tensor, run_id: torch.Tensor) -> torch.Tensor:
@@ -91,7 +115,7 @@ def support_points(component: torch.Tensor, k: int = NUM_DIRECTIONS) -> torch.Te
     return torch.gather(cand, 1, idx[:, :, None].expand(b, k, 2))
 
 
-def decimate_to_quad(points: torch.Tensor) -> torch.Tensor:
+def decimate_to_quad_plain(points: torch.Tensor) -> torch.Tensor:
     """Decimate closed polygons (B, k, 2), in order, to 4 vertices by
     repeatedly removing the active vertex with the smallest deviation from
     the chord of its active neighbours (lower index first on ties).
@@ -124,6 +148,47 @@ def decimate_to_quad(points: torch.Tensor) -> torch.Tensor:
     i3 = nxt[rows, i2]
     sel = torch.stack([i0, i1, i2, i3], dim=1)
     return torch.gather(points, 1, sel[:, :, None].expand(b, 4, 2))
+
+
+@functools.cache
+def _kernel():
+    fn = cuda_build.load("quad").quad_decimate_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(points: torch.Tensor) -> torch.Tensor:
+    global launches
+    b, k, _ = points.shape
+    if not points.is_contiguous() or points.data_ptr() % 8:  # the kernel reads (x, y) as one float2
+        points = points.clone(memory_format=torch.contiguous_format)
+    out = torch.empty((b, 4, 2), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        err = _kernel()(points.data_ptr(), out.data_ptr(), b, k, torch.cuda.current_stream().cuda_stream)
+    if err == _NOTHING_LAUNCHED:
+        return out
+    if err != 0:
+        raise RuntimeError(f"quad decimation kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def decimate_to_quad(points: torch.Tensor) -> torch.Tensor:
+    """``decimate_to_quad_plain`` of float32 polygons (B, k, 2) with
+    4 <= k <= 256: CUDA tensors go through the kernel or the call raises;
+    CPU and meta tensors take the plain version; any other device raises."""
+    if points.ndim != 3 or points.shape[2] != 2 or points.dtype != torch.float32:
+        raise TypeError(f"decimate_to_quad takes float32 (B, k, 2) polygons, got {points.dtype} "
+                        f"{tuple(points.shape)}")
+    if not MIN_POINTS <= points.shape[1] <= MAX_POINTS:
+        raise ValueError(f"decimate_to_quad takes {MIN_POINTS} to {MAX_POINTS} points a polygon, "
+                         f"got {points.shape[1]}")
+    if points.is_cuda:
+        return _launch(points)
+    if points.device.type in ("cpu", "meta"):
+        return decimate_to_quad_plain(points)
+    raise ValueError(f"decimate_to_quad: unsupported device {points.device}")
 
 
 def order_like_reference(quad: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,14 @@ Phases (any failure exits non-zero without the final result line):
    ``--seed``; each kernel's launch count is zeroed just before and read
    just after, and must have risen (K1 2 a pipeline call at 512², pass 1
    and pass 2, ``bn_act`` once a BatchNorm layer of the UNet and twice of
-   the ResNet18);
-3. plain path: the same batch with each kernel (K1's entries and
-   ``bn_act``) swapped for its plain PyTorch version must give the same
-   ``found`` flags, FENs and boards;
-4. kernels vs plain: ``bn_act`` against its plain version bit for bit at
+   the ResNet18, the quadrangle's decimation once);
+3. plain path: the same batch with each kernel (K1's entries, ``bn_act``
+   and the decimation) swapped for its plain PyTorch version must give the
+   same ``found`` flags, FENs and boards;
+4. kernels vs plain: the quadrangle's decimation (``csrc/quad.cu``)
+   against its plain version bit for bit on the polygons the main path
+   gave it at batch 8 and 128 and on seeded tie-heavy polygons, timed at
+   batch 128 beside its plain version; ``bn_act`` against its plain version bit for bit at
    every call shape the bfloat16 and the float32 models hand it at batch 8
    and on seeded edge cases (NaN and ±Inf, 13 channels on a 37×41 map, a
    transposed view, a channels-last map, an unaligned view; each in and out
@@ -158,7 +161,7 @@ Phases (any failure exits non-zero without the final result line):
    default B=8 (the registry's base-64 UNet and ResNet18, bfloat16, seeded
    random weights): its outputs' keys, shapes and dtypes (``ENTRY_LAYOUT``,
    the layout the CPU test holds against the JAX ``entry()``), K1's and
-   ``bn_act``'s launches of one call (2 and 58), every K1 and ``bn_act``
+   ``bn_act``'s launches of one call (2 and 58) and the decimation's (1), every K1 and ``bn_act``
    call held against its plain version, the warm ms of a call and both
    kernels timed at its shapes; ``dryrun_multichip(1)`` in this process
    (the segmentation and classification steps and ``Engine(mesh=…)`` with
@@ -184,7 +187,8 @@ share and top ops over 3 train steps of each trainer.
 
 Output: a ``{"kernels": [...]}`` line (K1's three kernels: ``warp_pass1``
 and ``warp_pass2`` timed on the main path and counted on it and on phase
-22's, ``warp_fused`` on phase 17's photos; and ``bn_act``), the ``nvidia-smi`` name/power-limit
+22's, ``warp_fused`` on phase 17's photos; ``bn_act``; and ``quad_decimate``,
+counted on the main path and phase 22's), the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
 """
 
@@ -247,16 +251,19 @@ def capture_k1(k1, fn, seen: set | None = None):
 
 def with_plain_k1(k1, fn):
     """Run ``fn`` with every kernel swapped for its plain PyTorch version:
-    both K1 entries, and ``bn_act`` where the models call it."""
+    both K1 entries, ``bn_act`` where the models call it, and the
+    quadrangle's decimation."""
     from chessvision_tpu_torch.models import layers
     from chessvision_tpu_torch.ops import bn_act as bnk
+    from chessvision_tpu_torch.ops import quad as quadk
 
-    saved = (k1.warp_twopass, k1.hat_resample, layers.bn_act)
+    saved = (k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad)
     k1.warp_twopass, k1.hat_resample, layers.bn_act = k1.warp_twopass_plain, k1.hat_resample_plain, bnk.bn_act_plain
+    quadk.decimate_to_quad = quadk.decimate_to_quad_plain
     try:
         return fn()
     finally:
-        k1.warp_twopass, k1.hat_resample, layers.bn_act = saved
+        k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad = saved
 
 
 def max_err(got, want) -> float:
@@ -424,6 +431,71 @@ def time_bn(bnk, args: tuple, bn) -> dict:
             "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3,
         }
     return res
+
+
+def capture_quad(quadk, fn):
+    """Run ``fn`` with the quadrangle's decimation recording the polygons it
+    is given: returns (fn's result, the recorded (B, k, 2) tensors)."""
+    real = quadk.decimate_to_quad
+    calls: list = []
+
+    def recording(points):
+        calls.append(points)
+        return real(points)
+
+    quadk.decimate_to_quad = recording
+    try:
+        result = fn()
+    finally:
+        quadk.decimate_to_quad = real
+    return result, calls
+
+
+def check_quad(quadk, points, where: str) -> None:
+    """The decimation kernel against its plain version on one batch of
+    polygons: fails unless every bit of the corners is equal."""
+    import torch
+
+    got, want = quadk.decimate_to_quad(points), quadk.decimate_to_quad_plain(points)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        rows = (got != want).flatten(1).any(1).nonzero().flatten().tolist()
+        fail(f"quad decimation differs from its plain version on {where} {tuple(points.shape)}: boards {rows[:8]}")
+
+
+def quad_edge_cases(seed: int) -> dict:
+    """Seeded polygons of integers in [0, 255]² full of ties, on the card:
+    scattered points, runs of repeated points, a square's border walked in
+    order (collinear runs) and one point k times; k 64 and 256."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    side = np.arange(64)
+    border = np.concatenate([np.stack([side, 0 * side], 1), np.stack([64 + 0 * side, side], 1),
+                             np.stack([64 - side, 64 + 0 * side], 1), np.stack([0 * side, 64 - side], 1)])
+    cases = {
+        "scattered k=64": g.integers(0, 256, (128, 64, 2)),
+        "runs k=256": g.integers(0, 256, (33, 6, 2))[:, np.sort(g.integers(0, 6, 256))],
+        "square border k=256": border + g.integers(0, 190, (17, 1, 2)),
+        "one point k=64": np.repeat(g.integers(0, 256, (5, 1, 2)), 64, axis=1),
+    }
+    return {name: torch.from_numpy(p.astype(np.float32)).cuda() for name, p in cases.items()}
+
+
+def time_quad(quadk, points) -> dict:
+    """Times (ms, CUDA events, back to back) of the decimation kernel on one
+    batch beside its plain version, and the bytes floor of the call (the
+    polygons read once, the corners written once, at the data sheet's
+    memory rate; the kernel is bound by its chain of k − 4 dependent steps,
+    not by bytes)."""
+    from chessvision_tpu_torch.tools.microbench import event_ms
+
+    b, k, _ = points.shape
+    io_bytes = b * k * 2 * 4 + b * 4 * 2 * 4
+    return {"shape": [b, k, 2], "steps": k - 4, "ms": event_ms(lambda: quadk.decimate_to_quad(points), iters=50),
+            "plain_ms": event_ms(lambda: quadk.decimate_to_quad_plain(points), iters=5), "bytes": io_bytes,
+            "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def seeded_quads(seed: int):
@@ -3534,7 +3606,7 @@ def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
     """Phase 22: ``graft_entry_torch.py``.  (a) ``entry()`` at its default
     B=8 on the card: the outputs' layout (``ENTRY_LAYOUT``), K1's and
     ``bn_act``'s launches of one call (zeroed just before, read just
-    after: 2 and 58), every K1 and ``bn_act`` call of it against its plain
+    after: 2 and 58; the quadrangle's decimation 1), every K1 and ``bn_act`` call of it against its plain
     version, the warm ms of a call, K1 and ``bn_act`` timed at its shapes;
     (b) ``dryrun_multichip(1)`` in this process on the card, its K1 calls
     against the plain version; (c) with ``cards`` ≥ 2, ``dryrun_multichip``
@@ -3548,6 +3620,7 @@ def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
 
     import graft_entry_torch as graft
     from chessvision_tpu_torch.models.layers import BatchNorm2d
+    from chessvision_tpu_torch.ops import quad as quadk
     from chessvision_tpu_torch.tools.microbench import warp_times
 
     t_phase = time.perf_counter()
@@ -3561,14 +3634,18 @@ def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
     # (a) one call counted and captured
     k1.zero_launches()
     bnk.launches = 0
-    (out, calls), bn_calls = capture_bn(lambda: capture_k1(k1, lambda: fn(images, threshold)))
+    quadk.launches = 0
+    ((out, calls), bn_calls), quad_calls = capture_quad(
+        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: fn(images, threshold))))
     torch.cuda.synchronize()
     launches = k1.launches
     by_kernel = {k: v for k, v in k1.kernel_launches.items() if v}
-    rec["entry_launches"] = {"k1": launches, "k1_by_kernel": dict(by_kernel), "bn_act": bnk.launches}
-    if launches != 2 or by_kernel != {"warp_pass1": 1, "warp_pass2": 1} or bnk.launches != 58:
-        fail(f"graft: entry()'s call launched K1 {launches} {by_kernel} and bn_act {bnk.launches} times "
-             "(expected 2: pass 1 and pass 2; and 58)")
+    rec["entry_launches"] = {"k1": launches, "k1_by_kernel": dict(by_kernel), "bn_act": bnk.launches,
+                             "quad": quadk.launches}
+    if launches != 2 or by_kernel != {"warp_pass1": 1, "warp_pass2": 1} or bnk.launches != 58 \
+            or quadk.launches != 1:
+        fail(f"graft: entry()'s call launched K1 {launches} {by_kernel}, bn_act {bnk.launches} and the quad "
+             f"decimation {quadk.launches} times (expected 2: pass 1 and pass 2; 58; and 1)")
     b = images.shape[0]
     layout = {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."), v.device.type) for k, v in out.items()}
     want = {k: ((b, *shape), dtype, "cuda") for k, (shape, dtype) in ENTRY_LAYOUT.items()}
@@ -3578,6 +3655,7 @@ def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
     for a in bn_calls:
         check_bn(bnk, a)
     rec["bn_act_checked"] = len(bn_calls)
+    check_quad(quadk, quad_calls[0], "graft entry")
     ms = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -3590,9 +3668,11 @@ def phase_graft(k1, bnk, card: str, cards: int, seed: int) -> tuple[int, dict]:
     closure = inspect.getclosurevars(fn).nonlocals
     bns = [m for part in ("extractor", "classifier") for m in closure[part].modules() if isinstance(m, BatchNorm2d)]
     rec["bn_act"] = time_bn(bnk, bn_calls[0], next(m for m in bns if m.running_mean is bn_calls[0][1]))
-    del calls, bn_calls, warp, out
+    rec["quad"] = time_quad(quadk, quad_calls[0])
+    del calls, bn_calls, quad_calls, warp, out
     log(f"[graft] entry() B={b} on the card: {json.dumps({k: list(v[0]) for k, v in layout.items()})}; "
-        f"K1 {launches} launches {json.dumps(by_kernel)}, bn_act {rec['entry_launches']['bn_act']}; "
+        f"K1 {launches} launches {json.dumps(by_kernel)}, bn_act {rec['entry_launches']['bn_act']}, quad "
+        f"decimation {rec['entry_launches']['quad']}; "
         f"one call warm p50 {rec['entry_ms']['p50']:.2f} ms (min {rec['entry_ms']['min']:.2f}); {card}")
     log(f"[graft] K1 at entry()'s shape {rec['k1']['shape']}: {rec['k1']['ms']:.4f} ms against its bound "
         f"{rec['k1']['bound_ms']:.4f}, plain {rec['k1']['plain_ms']:.2f}, F.grid_sample twice "
@@ -3708,6 +3788,7 @@ def main() -> int:
     from chessvision_tpu_torch.models.layers import BatchNorm2d
     from chessvision_tpu_torch.ops import bn_act as bnk
     from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.ops import quad as quadk
     from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
     from chessvision_tpu_torch.synthetic import board_frames, limit_chroma
 
@@ -3777,8 +3858,14 @@ def main() -> int:
              "launches": graft_rec["entry_launches"]["bn_act"], "max_abs_err": 0.0, "ms": tb["ms"],
              "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": "bytes",
              "library_ms": tb["library_ms"], "shape": tb["shape"]},
+            {"name": "quad_decimate", "route": "cuda", "source": "chessvision_tpu_torch/csrc/quad.cu",
+             "replaces": "none: no TPU kernel; the JAX package's decimation is a jnp fori_loop "
+                         "(chessvision_tpu/ops/quad.py:142)",
+             "launches": graft_rec["entry_launches"]["quad"], "max_abs_err": 0.0, "ms": graft_rec["quad"]["ms"],
+             "plain_ms": graft_rec["quad"]["plain_ms"], "bound_ms": graft_rec["quad"]["bound_ms"],
+             "bound_by": "bytes (the kernel is bound by its dependent steps)", "shape": graft_rec["quad"]["shape"]},
         ]
-        log(f"[graft] summary {json.dumps({k: v for k, v in graft_rec.items() if k not in ('k1', 'bn_act')})}")
+        log(f"[graft] summary {json.dumps({k: v for k, v in graft_rec.items() if k not in ('k1', 'bn_act', 'quad')})}")
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
@@ -3794,10 +3881,13 @@ def main() -> int:
 
     k1.zero_launches()
     bnk.launches = 0
+    quadk.launches = 0
     single = cv.process_image(frames8[0])
-    (res8, calls8), bn_calls8 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8)))
+    ((res8, calls8), bn_calls8), quad_calls8 = capture_quad(
+        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8))))
     torch.cuda.synchronize()
     launches = k1.launches
+    quad_main = quadk.launches
     k1_main = dict(k1.kernel_launches)  # by kernel, over the main path's calls (phases 2 and 4)
     bn_by_path = {"main": bnk.launches}
     # bn_act once a BatchNorm layer of the UNet, twice of the ResNet18 (the two arbitrate passes)
@@ -3817,6 +3907,9 @@ def main() -> int:
                          f"{k1_main}")
     if len(calls8["warp_twopass"]) != 1 or calls8["hat_resample"]:
         raise SystemExit("FAIL: the main path should call warp_twopass once and hat_resample never")
+    log(f"[main] quad decimation launches over process_image + process_batch: {quad_main}")
+    if quad_main != 2 or len(quad_calls8) != 1:
+        raise SystemExit(f"FAIL: expected 2 quad decimation launches (one a pipeline call), got {quad_main}")
     if not (res8.probabilities.shape == (8, 64, 13) and np.isfinite(res8.probabilities).all()):
         raise SystemExit("FAIL: probabilities not finite (8, 64, 13)")
     if res8.board_image.shape != (8, 512, 512) or res8.logits.shape != (8, 256, 256):
@@ -3868,14 +3961,19 @@ def main() -> int:
     engine.process_batch(frames128)  # warm-up at this batch
     k1.zero_launches()
     bnk.launches = 0
-    (res128, calls128), bn_calls128 = capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128)))
+    quadk.launches = 0
+    ((res128, calls128), bn_calls128), quad_calls128 = capture_quad(
+        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128))))
     torch.cuda.synchronize()
     launches128 = k1.launches
     k1_main = {k: n + k1.kernel_launches[k] for k, n in k1_main.items()}
     bn_by_path["main"] += bnk.launches
-    log(f"[main] K1 launches over process_batch B={bsz}: {launches128}; bn_act {bnk.launches}")
-    if launches128 != 2 or bnk.launches != n_bn:
-        raise SystemExit(f"FAIL: expected 2 K1 and {n_bn} bn_act launches at B={bsz}, got {launches128}, {bnk.launches}")
+    quad_main += quadk.launches
+    log(f"[main] K1 launches over process_batch B={bsz}: {launches128}; bn_act {bnk.launches}; "
+        f"quad decimation {quadk.launches}")
+    if launches128 != 2 or bnk.launches != n_bn or quadk.launches != 1:
+        raise SystemExit(f"FAIL: expected 2 K1, {n_bn} bn_act and 1 quad decimation launches at B={bsz}, got "
+                         f"{launches128}, {bnk.launches}, {quadk.launches}")
     warp128 = calls128["warp_twopass"][0]
     errs[f"B={bsz}"] = check_k1(k1, *warp128)
     log(f"[k1] max |kernel - plain| by case and entry: {json.dumps(errs)}")
@@ -3901,6 +3999,21 @@ def main() -> int:
         f"{k1_128['pass2_ms']:.4f} against {k1_128['pass2_floor_ms']:.4f} (plain {k1_128['pass2_plain_ms']:.2f}, "
         f"grid_sample {k1_128['pass2_library_ms']:.4f})")
     del calls8, calls128, warp128
+
+    # the quadrangle's decimation against its plain version, bit for bit: the main path's polygons at B=8
+    # (the batch, and each board alone) and B=128, and the seeded tie-heavy polygons
+    quad_cases = {"B=8": [quad_calls8[0]], "B=8 one board a call": [quad_calls8[0][i : i + 1] for i in range(8)],
+                  f"B={bsz}": [quad_calls128[0]], **{k: [v] for k, v in quad_edge_cases(args.seed).items()}}
+    for name, batches in quad_cases.items():
+        for pts in batches:
+            check_quad(quadk, pts, name)
+    quad_times = time_quad(quadk, quad_calls128[0])
+    log(f"[quad] equal to its plain version in every bit on "
+        f"{json.dumps({k: [list(p.shape) for p in v] for k, v in quad_cases.items() if len(v) == 1})} and 8 boards "
+        f"one a call")
+    log(f"[quad] B={bsz} decimation {quad_times['ms']:.4f} ms a call ({quad_times['steps']} steps), plain "
+        f"{quad_times['plain_ms']:.3f} ms, bytes floor {quad_times['bound_ms']:.6f} ms; {card}")
+    del quad_calls8, quad_calls128, quad_cases
 
     # bn_act against its plain version, bit for bit: every call shape of the bf16 models at B=8 and
     # B=128 and of the float32 models at B=8, then the seeded edge cases
@@ -4106,6 +4219,21 @@ def main() -> int:
         "launches_by_path": bn_by_path,
         "shapes": bn_times,
         "checked_inputs": bn_checked,
+    })
+    kernels.append({
+        "name": "quad_decimate",
+        "route": "cuda",
+        "source": "chessvision_tpu_torch/csrc/quad.cu",
+        "replaces": "none: no TPU kernel; the JAX package's decimation is a jnp fori_loop "
+                    "(chessvision_tpu/ops/quad.py:142)",
+        "launches": quad_main + graft_rec["entry_launches"]["quad"],
+        "launches_by_path": {"main": quad_main, "graft": graft_rec["entry_launches"]["quad"]},
+        "max_abs_err": 0.0,
+        "ms": quad_times["ms"],
+        "plain_ms": quad_times["plain_ms"],
+        "bound_ms": quad_times["bound_ms"],
+        "bound_by": "bytes (the kernel is bound by its dependent steps)",
+        "shape": quad_times["shape"],
     })
     log(f"[memory] summary {json.dumps(memory)}")
     log(f"[testset] summary {json.dumps(testset)}")

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from chessvision_tpu_torch.ops import hat_resample, warp
+from chessvision_tpu_torch.ops import hat_resample, quad, warp
+# by its own name (pytest puts tests/ on the path): the card's machine has another package named ``tests``
+from _quad_cases import POLYGON_KINDS, mask_support_points, masks, polygons
 
 pytestmark = pytest.mark.cuda
 
@@ -559,7 +561,8 @@ def test_k1_on_every_card_past_the_first_equals_its_plain_version() -> None:
                                    atol=0, rtol=0)
 
 
-_ENGINE_ON_CARD_1 = r"""
+# a child's ``contexts()``: the cards on which this process holds a primary context, by libcuda
+_CONTEXTS = r"""
 import ctypes, json
 import torch
 
@@ -578,8 +581,9 @@ def contexts():
         if on.value:
             active.append(i)
     return active
+"""
 
-
+_ENGINE_ON_CARD_1 = _CONTEXTS + r"""
 stages = {}
 from chessvision_tpu_torch import profiling
 from chessvision_tpu_torch.core import ChessVision
@@ -999,3 +1003,128 @@ def test_stage_breakdown_on_the_card() -> None:
     assert set(stages) == {"upload", "front", "extractor", "quad", "warp", "gridfix", "arbitrate", "copy_back",
                            "device_wait", "mask", "validate", "fen", "other"}  # fmt: skip
     assert stages["device_wait"] > 0 and abs(sum(stages.values()) - total) < 1e-6
+
+
+# -- the quadrangle's decimation kernel (csrc/quad.cu) ---------------------------------
+
+
+_QUAD_BATCHES = (1, 3, 128, 1024)
+
+
+def _quad_kernel_equals_plain(points: torch.Tensor) -> None:
+    """One launch, and the plain version's corners on the card in every bit."""
+    before = quad.launches
+    got = quad.decimate_to_quad(points)
+    torch.cuda.synchronize()
+    assert quad.launches == before + 1
+    want = quad.decimate_to_quad_plain(points)
+    assert got.shape == want.shape == (points.shape[0], 4, 2) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [4, 5, 64, 256])
+@pytest.mark.parametrize("kind", POLYGON_KINDS)
+def test_quad_kernel_equals_plain_bit_for_bit_on_tie_heavy_polygons(kind, k) -> None:
+    _need_card()
+    pts = torch.from_numpy(polygons(kind, k, max(_QUAD_BATCHES))).cuda()
+    for b in _QUAD_BATCHES:
+        _quad_kernel_equals_plain(pts[:b])
+
+
+def test_quad_kernel_equals_plain_on_the_masks_support_points() -> None:
+    _need_card()
+    pts = torch.from_numpy(mask_support_points()).cuda()
+    _quad_kernel_equals_plain(pts)
+    for i in range(len(pts)):
+        _quad_kernel_equals_plain(pts[i : i + 1])
+    _quad_kernel_equals_plain(pts.repeat(205, 1, 1))  # 1 025 boards: the last block holds one
+
+
+def test_quad_kernel_reads_strided_and_unaligned_polygons() -> None:
+    _need_card()
+    pts = torch.from_numpy(polygons("star", 64, 256)).cuda()
+    _quad_kernel_equals_plain(pts[::2])  # not contiguous
+    flat = torch.cat([torch.zeros(1, device="cuda"), pts.flatten()])
+    _quad_kernel_equals_plain(flat[1:].view(256, 64, 2))  # contiguous at an odd float offset
+
+
+def test_quad_kernel_ranks_nan_and_inf_as_the_plain_version_does() -> None:
+    """A NaN deviation is removed first and ±inf coordinates give NaN or
+    infinite deviations: torch.argmin's order, which the kernel keeps."""
+    _need_card()
+    pts = torch.from_numpy(polygons("star", 64, 128)).cuda()
+    flat = pts.view(-1)
+    flat[::37], flat[5::41], flat[11::43] = float("nan"), float("inf"), -float("inf")
+    _quad_kernel_equals_plain(pts)
+
+
+@pytest.mark.parametrize("name", sorted(masks()))
+def test_find_quadrangle_batch_on_the_card_equals_the_cpu(name) -> None:
+    _need_card()
+    from chessvision_tpu_torch.utils import full_f32
+
+    probs = torch.from_numpy(masks()[name][None])
+    want_q, want_f = quad.find_quadrangle_batch(probs, 0.5)
+    before = quad.launches
+    with full_f32():
+        got_q, got_f = quad.find_quadrangle_batch(probs.cuda(), 0.5)
+    assert quad.launches == before + 1
+    assert torch.equal(got_f.cpu(), want_f) and torch.equal(got_q.cpu().view(torch.int32), want_q.view(torch.int32))
+
+
+def test_find_quadrangle_batch_on_the_card_equals_the_cpu_on_every_mask_at_once() -> None:
+    _need_card()
+    from chessvision_tpu_torch.utils import full_f32
+
+    probs = torch.from_numpy(np.stack(list(masks().values())))
+    want_q, want_f = quad.find_quadrangle_batch(probs, 0.5)
+    with full_f32():
+        got_q, got_f = quad.find_quadrangle_batch(probs.cuda(), 0.5)
+    assert torch.equal(got_f.cpu(), want_f) and torch.equal(got_q.cpu().view(torch.int32), want_q.view(torch.int32))
+
+
+def test_quad_kernel_on_an_empty_batch_launches_nothing() -> None:
+    _need_card()
+    before = quad.launches
+    out = quad.decimate_to_quad(torch.zeros((0, 64, 2), device="cuda"))
+    assert out.shape == (0, 4, 2) and out.is_cuda and quad.launches == before
+
+
+@pytest.mark.parametrize(
+    ("dtype", "k"), [(torch.float64, 64), (torch.float32, 3), (torch.float32, 257)], ids=["float64", "k3", "k257"]
+)
+def test_quad_kernel_wrapper_refuses_what_the_kernel_does_not_take(dtype, k) -> None:
+    _need_card()
+    before = quad.launches
+    with pytest.raises((TypeError, ValueError)):
+        quad.decimate_to_quad(torch.zeros((2, k, 2), dtype=dtype, device="cuda"))
+    assert quad.launches == before
+
+
+_QUAD_ON_CARD_1 = _CONTEXTS + r"""
+from chessvision_tpu_torch.ops import quad
+from _quad_cases import polygons
+
+pts = torch.from_numpy(polygons("star", 64, 128)).to("cuda:1")
+got = quad.decimate_to_quad(pts)
+torch.cuda.synchronize(1)
+want = quad.decimate_to_quad_plain(pts)
+print(json.dumps({"cards": contexts(), "device": str(got.device), "launches": quad.launches,
+                  "equal": bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))}))
+"""
+
+
+def test_quad_kernel_on_the_second_card_leaves_nothing_on_the_first() -> None:
+    _need_cards(2)
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _QUAD_ON_CARD_1], capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join([str(repo), str(repo / "tests")])}, cwd=repo)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec == {"cards": [1], "device": "cuda:1", "launches": 1, "equal": True}, rec

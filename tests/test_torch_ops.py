@@ -24,6 +24,7 @@ from chessvision_tpu.ops import warp as jwarp
 from chessvision_tpu.ops.pallas_kernels import banded_resample
 from chessvision_tpu_torch.ops import color, gridfix, hat_resample, quad, squares, warp
 from chessvision_tpu_torch.synthetic import board_frames
+from tests._quad_cases import masks as _masks
 
 # the ops packages re-export the function ``resize`` under the module's name
 jresize = importlib.import_module("chessvision_tpu.ops.resize")
@@ -34,26 +35,6 @@ _DEST = np.array([[0, 0], [512, 0], [512, 512], [0, 512]], np.float32)
 
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _fill_convex(pts: np.ndarray, size: int = 256) -> np.ndarray:
-    """bool (size, size) mask of pixels inside a convex polygon (x, y)."""
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
-    inside = np.ones((size, size), bool)
-    sign = None
-    for i in range(len(pts)):
-        (x0, y0), (x1, y1) = pts[i], pts[(i + 1) % len(pts)]
-        cross = (x1 - x0) * (yy - y0) - (y1 - y0) * (xx - x0)
-        if sign is None:
-            sign = 1.0 if np.sum(cross >= 0) > np.sum(cross <= 0) else -1.0
-        inside &= sign * cross >= 0
-    return inside
-
-
-def _quad_probs(pts: list[list[float]]) -> np.ndarray:
-    """Probability map of a hard mask: sigmoid(±8) inside/outside."""
-    m = _fill_convex(np.asarray(pts, np.float64))
-    return np.where(m, 1 / (1 + np.exp(-8.0)), 1 / (1 + np.exp(8.0))).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -192,38 +173,6 @@ def test_bilinear_warp_matches(frames) -> None:
 
 
 # -- quadrangles ---------------------------------------------------------------------
-
-
-def _masks() -> dict[str, np.ndarray]:
-    stub = [[32, 28], [224, 30], [226, 228], [30, 226]]  # tests/test_engine.py stub quad
-    masks = {
-        "stub_quad": _quad_probs(stub),
-        "rotated": _quad_probs([[128, 30], [226, 128], [128, 226], [30, 128]]),
-        "tilted": _quad_probs([[40, 40], [215, 50], [220, 220], [35, 210]]),
-        "empty": np.zeros((256, 256), np.float32),
-    }
-    speck = _quad_probs([[40, 40], [215, 50], [220, 220], [35, 210]])
-    rng = np.random.default_rng(1)
-    for _ in range(20):
-        y, x = rng.integers(0, 30, 2)
-        speck[y : y + 3, x : x + 3] = 0.99
-    speck[128, 128] = 1.0
-    masks["specks"] = speck
-    small = np.zeros((256, 256), np.float32)
-    small[90:210, 80:200] = 1.0  # 22% of frame plus a speck: small-board fallback
-    small[10:14, 10:14] = 1.0
-    masks["small_board"] = small
-    tiny = np.zeros((256, 256), np.float32)
-    tiny[120:150, 120:150] = 1.0  # under the 5% floor plus a speck: rejected
-    tiny[10:14, 10:14] = 1.0
-    masks["tiny_board"] = tiny
-    u = np.zeros((256, 256), np.float32)
-    u[40:220, 40:90] = 1.0
-    u[40:220, 170:220] = 1.0
-    u[180:220, 40:220] = 1.0
-    u[10:40, 230:250] = 1.0
-    masks["u_shape_speck"] = u
-    return masks
 
 
 @pytest.fixture(scope="module")
