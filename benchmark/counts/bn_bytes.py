@@ -4,14 +4,15 @@ The port's ``bn_act`` reads each BatchNorm's input once (the convolution's
 output, in the compute dtype), its residual once where there is one
 (float32), the per-channel mean, multiplier and bias (float32), and writes
 its output once in the dtype its reader takes.  Which output is stored in
-which dtype follows the models' inference contract: in the UNet every map
-in the compute dtype but the bottleneck (``down4``), in float32; in the
-ResNet the stem, each block's output and its projected residual in
-float32, and each block's inner map in the compute dtype.  The shapes come
-from a recording forward of the reference models; a board is one
-segmenter input and two classifier passes over its 64 squares."""
+which dtype follows the models' inference contract, which each
+architecture's file states in its ``bn_out_item``
+(``reference/archs/<model_id>.py``).  The shapes come from a recording
+forward of the reference models; a board is one segmenter input and two
+classifier passes over its 64 squares."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -20,16 +21,13 @@ from benchmark.reference import models
 _ITEM = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 
-def _out_item(model_id: str, path: str, act: int) -> tuple[int, int]:
-    """(output bytes an element, residual bytes an element) of one
-    BatchNorm of ``model_id``; raises for a model without ``bn_act``."""
-    if model_id == "unet":
-        return (4 if path.startswith("down4/") and path.endswith("bn2") else act), 0
-    if model_id == "resnet18":
-        if path == "bn1" or path.endswith("down_bn"):
-            return 4, 0
-        return (act, 0) if path.endswith("bn1") else (4, 4)
-    raise ValueError(f"{model_id} runs no bn_act")
+def _out_item(model_id: str) -> Callable[[str, int], tuple[int, int]]:
+    """``bn_out_item`` of ``model_id``'s architecture; raises for a model
+    without ``bn_act``."""
+    out_item = getattr(models.arch(model_id), "bn_out_item", None)
+    if out_item is None:
+        raise ValueError(f"{model_id} runs no bn_act")
+    return out_item
 
 
 def bn_act_bytes_per_board(reference, dtype: str) -> float:
@@ -53,7 +51,7 @@ def bn_act_bytes_per_board(reference, dtype: str) -> float:
             numel = 1
             for s in shape:
                 numel *= s
-            out, res = _out_item(model_id, path, act)
+            out, res = _out_item(model_id)(path, act)
             total += passes * (numel * (act + out + res) + 3 * 4 * shape[1])
         layers.ops = []
     return total

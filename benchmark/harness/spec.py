@@ -4,8 +4,11 @@ configuration (``configs/<config>.json``), its traffic mix
 (``entries/<entry>.py``), the comparison that decides ``correct``
 (``checks/<check>.py``) and its limits (``limits/<cell>.json``), the
 reader of each end-to-end metric (``end_to_end/<metric>.py``) and of each
-per-layer metric (``layer_metrics/<metric>.py``).  A later cell, mix,
-entry, check or metric is a new file and a new entry, never an edit here."""
+per-layer metric (``layer_metrics/<metric>.py``); the configuration's
+models are found by their model ids, each architecture's reference in
+``reference/archs/<model_id>.py`` (``reference.models.arch``).  A later
+cell, configuration, architecture, mix, entry, check or metric is a new
+file and a new entry, never an edit here."""
 
 from __future__ import annotations
 

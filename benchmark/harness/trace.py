@@ -159,8 +159,8 @@ def from_profiler(prof: Any, requests: int, boards: int) -> TraceData:
     for e in prof.events():
         a, b, name = float(e.time_range.start), float(e.time_range.end), e.name
         if e.device_type == cuda:
-            if name.startswith(SPAN_PREFIX):
-                continue  # the spans' mirror on the device's timeline
+            if e.is_user_annotation:
+                continue  # a span's mirror on the device's timeline, not device work
             low = name.lower()
             (data.copies if ("memcpy" in low or "memset" in low) else data.kernels).append((a, b, name))
             continue

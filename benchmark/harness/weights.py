@@ -2,7 +2,7 @@
 made on the device in one draw a model and handed, the same arrays, to
 the program (``loop.build``) and to the reference.
 
-Every leaf of the architecture (``reference.models.LEAVES``) is cut from
+Every leaf of the architecture (its ``leaves``, ``reference.models.arch``) is cut from
 one standard normal draw of a ``torch.Generator`` on the device: kernels
 scaled by √(2 / fan-in), as He's initialisation keeps the activations'
 scale through ReLU layers, and convolution kernels rounded to the dtype
@@ -58,7 +58,7 @@ def make(config: dict, seed: int, device: torch.device) -> dict[str, dict[str, n
         model = config["models"][kind]
         if model["weights"] != "seeded":
             continue
-        shapes = models.LEAVES[model["model_id"]](**model["arch"])
+        shapes = models.arch(model["model_id"]).leaves(**model["arch"])
         sub = int(np.random.SeedSequence([seed % (1 << 64), i]).generate_state(1, np.uint64)[0] % (1 << 63))
         out[kind] = _leaves(shapes, sub, dtype, device, model.get("held", {}))
     return out

@@ -1,27 +1,41 @@
 """Plain float32 forwards of the models, read straight from the repo's
 ``.npz`` checkpoints or from seeded leaves (the Flax variable tree,
-flattened to ``params/...`` and ``batch_stats/...`` keys; ``LEAVES``
-gives each architecture's leaves and their shapes).
+flattened to ``params/...`` and ``batch_stats/...`` keys).
 
-Every convolution and linear layer goes through ``Layers.conv`` /
-``Layers.linear``; BatchNorm uses the running statistics in Flax's order,
-``(x − mean) · rsqrt(var + eps) · scale + bias``.  ``Layers(precision=
-"fp8")`` is the benchmark's lower-precision control: the input and the
-weight of every convolution and linear layer are rounded to float8 e4m3
-with one scale a tensor (its largest magnitude to 448), products summed in
-float32.  NHWC in and out, NCHW inside.
+Each architecture is one file, ``archs/<model_id>.py``, named by the
+port's model id and found by ``arch(model_id)``.  It defines
+``forward(L, x)``, the plain float32 forward (an extractor maps
+(B, 256, 256, 3) in [0, 1] to (B, 256, 256) logits, a classifier
+(N, 64, 64, 1) to (N, 13)); ``leaves(**arch)``, every leaf with its shape
+in Flax's layout; and, where the port runs the model's BatchNorms through
+``bn_act``, ``bn_out_item(path, act)``, the output and residual bytes of
+one element of the BatchNorm at ``path`` (``counts/bn_bytes.py``).
+
+An architecture file sends every convolution and linear layer through
+``Layers.conv``, ``Layers.conv_transpose2x2`` or ``Layers.linear`` and
+never calls ``F.conv2d`` or ``F.linear`` itself: the control below rounds
+only what passes through them.  BatchNorm uses the running statistics in
+Flax's order, ``(x − mean) · rsqrt(var + eps) · scale + bias``.
+``Layers(precision="fp8")`` is the benchmark's lower-precision control:
+the input and the weight of every convolution and linear layer are rounded
+to float8 e4m3 with one scale a tensor (its largest magnitude to 448),
+products summed in float32.  NHWC in and out, NCHW inside.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 _F8_MAX = 448.0
+ARCHS = Path(__file__).resolve().parent / "archs"  # one file a model id
 
 
 def load_npz(path: str | Path) -> tuple[dict[str, np.ndarray], dict]:
@@ -57,10 +71,11 @@ class Layers:
     def _q(self, x: torch.Tensor) -> torch.Tensor:
         return _fp8(x) if self.precision == "fp8" else x
 
-    def conv(self, x: torch.Tensor, path: str, stride: int = 1, padding: int = 0) -> torch.Tensor:
-        w = self.t[f"params/{path}/kernel"].permute(3, 2, 0, 1)  # HWIO → OIHW
+    def conv(self, x: torch.Tensor, path: str, stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
+        # (kh, kw, in / groups, out) → (out, in / groups, kh, kw)
+        w = self.t[f"params/{path}/kernel"].permute(3, 2, 0, 1)
         b = self.t.get(f"params/{path}/bias")
-        return F.conv2d(self._q(x.float()), self._q(w), b, stride, padding)
+        return F.conv2d(self._q(x.float()), self._q(w), b, stride, padding, 1, groups)
 
     def conv_transpose2x2(self, x: torch.Tensor, path: str) -> torch.Tensor:
         k = self.t[f"params/{path}/kernel"]  # (kH, kW, in, out), flipped against torch's
@@ -81,106 +96,27 @@ class Layers:
         return (x.float() - mean) * (torch.rsqrt(var + eps) * scale) + bias
 
 
-# -- UNet ----------------------------------------------------------------------
-
-
-def _double_conv(L: Layers, x: torch.Tensor, path: str) -> torch.Tensor:
-    x = F.relu(L.bn(L.conv(x, f"{path}/conv1", padding=1), f"{path}/bn1", 1e-5))
-    return F.relu(L.bn(L.conv(x, f"{path}/conv2", padding=1), f"{path}/bn2", 1e-5))
-
-
-def unet(L: Layers, x: torch.Tensor) -> torch.Tensor:
-    """(B, 256, 256, 3) in [0, 1] → (B, 256, 256) logits; transposed-conv
-    upsampling (the shipped checkpoint's ``bilinear: false``)."""
-    x = x.permute(0, 3, 1, 2)
-    skips = [_double_conv(L, x, "inc")]
-    for i in (1, 2, 3):
-        skips.append(_double_conv(L, F.max_pool2d(skips[-1], 2), f"down{i}/conv"))
-    x = _double_conv(L, F.max_pool2d(skips[-1], 2), "down4/conv")
-    for i in (1, 2, 3, 4):
-        up = L.conv_transpose2x2(x, f"up{i}/up")
-        skip = skips.pop()
-        dh, dw = skip.shape[2] - up.shape[2], skip.shape[3] - up.shape[3]
-        if dh or dw:
-            up = F.pad(up, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        x = _double_conv(L, torch.cat([skip, up], dim=1), f"up{i}/conv")
-    return L.conv(x, "outc")[:, 0]
-
-
-def _double_conv_leaves(path: str, cin: int, cout: int) -> dict[str, tuple[int, ...]]:
-    out = {f"params/{path}/conv1/kernel": (3, 3, cin, cout), f"params/{path}/conv2/kernel": (3, 3, cout, cout)}
-    for bn in ("bn1", "bn2"):
-        out.update(_bn_leaves(f"{path}/{bn}", cout))
-    return out
-
-
-def _bn_leaves(path: str, ch: int) -> dict[str, tuple[int, ...]]:
+def bn_leaves(path: str, ch: int) -> dict[str, tuple[int, ...]]:
+    """The four leaves of a BatchNorm of ``ch`` channels at ``path``."""
     return {f"params/{path}/scale": (ch,), f"params/{path}/bias": (ch,),
             f"batch_stats/{path}/mean": (ch,), f"batch_stats/{path}/var": (ch,)}
 
 
-def unet_leaves(base: int = 64, bilinear: bool = False) -> dict[str, tuple[int, ...]]:
-    """Every leaf of ``unet`` at ``base`` with its shape (Flax layout)."""
-    if bilinear:
-        raise ValueError("the reference's UNet upsamples by transposed convolutions only")
-    out = _double_conv_leaves("inc", 3, base)
-    for i in (1, 2, 3, 4):
-        out.update(_double_conv_leaves(f"down{i}/conv", base * 2 ** (i - 1), base * 2**i))
-    for i in (1, 2, 3, 4):
-        cin = base * 2 ** (5 - i)
-        out[f"params/up{i}/up/kernel"] = (2, 2, cin, cin // 2)
-        out[f"params/up{i}/up/bias"] = (cin // 2,)
-        out.update(_double_conv_leaves(f"up{i}/conv", cin, cin // 2))
-    out["params/outc/kernel"] = (1, 1, base, 1)
-    out["params/outc/bias"] = (1,)
-    return out
+@functools.lru_cache(maxsize=None)
+def _load(path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"benchmark_archs_{path.stem}", path)
+    if spec is None or spec.loader is None:
+        raise ImportError(f"no module at {path}")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-# -- ResNet18 -------------------------------------------------------------------
-
-
-def resnet18(L: Layers, x: torch.Tensor) -> torch.Tensor:
-    """(N, 64, 64, 1) in [0, 1] → (N, 13) logits."""
-    x = x.permute(0, 3, 1, 2)
-    x = F.relu(L.bn(L.conv(x, "conv1", stride=2, padding=3), "bn1", 1e-5))
-    x = F.max_pool2d(x, 3, stride=2, padding=1)
-    cin = x.shape[1]
-    width = cin
-    for i in range(4):
-        ch = width * 2**i
-        for j in range(2):
-            p = f"layer{i + 1}_{j}"
-            s = 2 if (i > 0 and j == 0) else 1
-            y = F.relu(L.bn(L.conv(x, f"{p}/conv1", stride=s, padding=1), f"{p}/bn1", 1e-5))
-            y = L.bn(L.conv(y, f"{p}/conv2", padding=1), f"{p}/bn2", 1e-5)
-            res = L.bn(L.conv(x, f"{p}/down_conv", stride=s), f"{p}/down_bn", 1e-5) if (cin != ch or s != 1) else x
-            x = F.relu(y + res)
-            cin = ch
-    return L.linear(x.mean(dim=(2, 3)), "fc")
-
-
-def resnet18_leaves(width: int = 64, in_channels: int = 1, classes: int = 13) -> dict[str, tuple[int, ...]]:
-    """Every leaf of ``resnet18`` at ``width`` with its shape (Flax layout)."""
-    out = {"params/conv1/kernel": (7, 7, in_channels, width), **_bn_leaves("bn1", width)}
-    cin = width
-    for i in range(4):
-        ch = width * 2**i
-        for j in range(2):
-            p = f"layer{i + 1}_{j}"
-            s = 2 if (i > 0 and j == 0) else 1
-            out[f"params/{p}/conv1/kernel"] = (3, 3, cin, ch)
-            out[f"params/{p}/conv2/kernel"] = (3, 3, ch, ch)
-            out.update(_bn_leaves(f"{p}/bn1", ch))
-            out.update(_bn_leaves(f"{p}/bn2", ch))
-            if cin != ch or s != 1:
-                out[f"params/{p}/down_conv/kernel"] = (1, 1, cin, ch)
-                out.update(_bn_leaves(f"{p}/down_bn", ch))
-            cin = ch
-    out["params/fc/kernel"] = (8 * width, classes)
-    out["params/fc/bias"] = (classes,)
-    return out
-
-
-EXTRACTORS = {"unet": unet}
-CLASSIFIERS = {"resnet18": resnet18}
-LEAVES = {"unet": unet_leaves, "resnet18": resnet18_leaves}
+def arch(model_id: str) -> ModuleType:
+    """The module ``archs/<model_id>.py`` (``ARCHS``): its ``forward``,
+    ``leaves`` and, where it has one, ``bn_out_item``."""
+    path = ARCHS / f"{model_id}.py"
+    if not path.is_file():
+        have = sorted(p.stem for p in ARCHS.glob("*.py"))
+        raise KeyError(f"no architecture {model_id!r} in {ARCHS}; have {have}")
+    return _load(path)

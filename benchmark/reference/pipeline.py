@@ -61,8 +61,8 @@ class Reference:
 
         self.ex = models.Layers(leaves("extractor", ex), device, precision)
         self.cl = models.Layers(leaves("classifier", cl), device, precision)
-        self.ex_fn = models.EXTRACTORS[ex["model_id"]]
-        self.cl_fn = models.CLASSIFIERS[cl["model_id"]]
+        self.ex_fn = models.arch(ex["model_id"]).forward
+        self.cl_fn = models.arch(cl["model_id"]).forward
         self.cl_probs = bool(cl["outputs_probabilities"])
         eng = config["engine"]
         self.threshold = float(eng["threshold"])

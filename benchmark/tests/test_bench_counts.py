@@ -1,14 +1,26 @@
 """The benchmark's counts of work against the port's own arithmetic."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from benchmark.counts import bn_bytes, flops, k1_bytes, peaks
 from benchmark.harness import loop, spec, weights
-from benchmark.reference import ops, pipeline
+from benchmark.reference import models, ops, pipeline
 
 torch.set_num_threads(4)
+
+_BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+# the first cell of each configuration of BENCHMARK.json
+FIRST_CELLS = [next(w["name"] for w in _BENCH["workloads"] if w["config"] == c["name"]) for c in _BENCH["configs"]]
+
+
+def _runs_bn_act(cell):
+    """Whether every model of the cell's configuration runs ``bn_act``
+    (its architecture file defines ``bn_out_item``)."""
+    return all(hasattr(models.arch(m["model_id"]), "bn_out_item") for m in spec.load_cell(cell).config["models"].values())
 
 
 def _config(cell):
@@ -27,7 +39,7 @@ def _port_engine(cell):
     return loop.build(cfg, spec.ROOT, torch.device("cpu"), seeded).engine
 
 
-@pytest.mark.parametrize("cell", ["unet32.batch512", "unet64.batch512"])
+@pytest.mark.parametrize("cell", FIRST_CELLS)
 def test_flops_equal_the_ports_count(cell):
     from chessvision_tpu_torch.tools.flops import pipeline_flops_per_board
 
@@ -64,12 +76,11 @@ def test_tap_sector_bytes_equal_the_ports():
     assert 0 < mine <= 2 * 300 * 400 * 4
 
 
-@pytest.mark.parametrize("cell", ["unet32.batch512"])
+@pytest.mark.parametrize("cell", [c for c in FIRST_CELLS if _runs_bn_act(c)])
 def test_bn_act_bytes_equal_what_the_ports_bn_act_moves(cell, monkeypatch):
     """Each ``bn_act`` call of the port's bfloat16 models, on the CPU where
     it runs its plain version: its input, residual and output bytes as the
     tensors it is given and returns, and its three channel vectors."""
-    from chessvision_tpu_torch.core import ChessVision
     from chessvision_tpu_torch.models import layers
 
     moved = [0.0]
@@ -84,12 +95,8 @@ def test_bn_act_bytes_equal_what_the_ports_bn_act_moves(cell, monkeypatch):
 
     monkeypatch.setattr(layers, "bn_act", counting)
     cfg = spec.load_cell(cell).config
-    ex, cl = cfg["models"]["extractor"], cfg["models"]["classifier"]
-    cv = ChessVision(
-        board_extractor_weights=str(spec.ROOT / ex["weights"]), board_extractor_model_id=ex["model_id"],
-        classifier_weights=str(spec.ROOT / cl["weights"]), classifier_model_id=cl["model_id"],
-        dtype=torch.bfloat16, device="cpu",
-    )
+    cfg["dtype"] = "bfloat16"
+    cv = loop.build(cfg, spec.ROOT, torch.device("cpu"), weights.make(cfg, 1, torch.device("cpu")))
     with torch.inference_mode():
         cv.board_extractor[0](torch.zeros((1, 256, 256, 3)))
         for _ in range(2):

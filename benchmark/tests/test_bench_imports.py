@@ -55,7 +55,7 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    files = sorted((BENCH / "reference").glob("*.py")) + sorted((BENCH / "counts").glob("*.py"))
+    files = sorted((BENCH / "reference").rglob("*.py")) + sorted((BENCH / "counts").glob("*.py"))
     assert len(files) >= 6
     for path in files:
         tops = {_top(n) for n in _imports(path)}

@@ -125,3 +125,56 @@ def test_one_reader_serves_the_metrics_of_one_name():
 
     for m in json.loads((spec.ROOT / "BENCHMARK.json").read_text())["per_layer"]:
         assert m["name"] in names or m["name"].rsplit(".", 1)[0] in names, m["name"]
+
+
+def _event(name, a, b, device_type, annotation=False):
+    return SimpleNamespace(name=name, time_range=SimpleNamespace(start=a, end=b), device_type=device_type,
+                           is_user_annotation=annotation)
+
+
+def test_annotation_mirrors_are_not_device_work():
+    """A ``record_function`` span in the program is a user annotation, and
+    the profiler mirrors it onto the device's timeline; the mirror holds no
+    device work, whatever its name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as real:
+        with record_function("model:block"):
+            torch.ones(4).sum()
+    assert any(e.name == "model:block" and e.is_user_annotation for e in real.events())
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [
+        _event(trace.REQUEST_SPAN, 0.0, 1000.0, cpu, True),
+        _event("model:block", 100.0, 900.0, cpu, True),
+        _event("cudaLaunchKernel", 150.0, 160.0, cpu),
+        _event("gemm_kernel", 200.0, 300.0, cuda),
+        _event("model:block", 200.0, 800.0, cuda, True),
+        _event(trace.REQUEST_SPAN, 0.0, 1000.0, cuda, True),
+    ]
+    t = trace.from_profiler(SimpleNamespace(events=lambda: events), requests=1, boards=1)
+    assert t.kernels == [(200.0, 300.0, "gemm_kernel")] and t.copies == []
+    assert t.busy_s == pytest.approx(100e-6) and t.launches == 1
+    assert spec.reader("device_idle_pct.batch").read(SimpleNamespace(trace=t)) == pytest.approx(90.0)
+
+
+@pytest.mark.cuda
+def test_annotation_mirrors_are_not_device_work_on_the_card(card):
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn((1024, 1024), device=card)
+    (x @ x).sum().item()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(trace.REQUEST_SPAN):
+            with record_function("model:block"):
+                y = x @ x
+            torch.cuda.synchronize(card)
+    del y
+    cuda = torch.autograd.DeviceType.CUDA
+    mirrors = [e.name for e in prof.events() if e.device_type == cuda and e.is_user_annotation]
+    assert "model:block" in mirrors, sorted({e.name for e in prof.events() if e.device_type == cuda})
+    t = trace.from_profiler(prof, requests=1, boards=1)
+    names = [n for _, _, n in t.kernels + t.copies]
+    assert names and not any(n.startswith(("model:", trace.SPAN_PREFIX)) for n in names), names

@@ -2,6 +2,8 @@
 weights at B ≤ 2 (float32 on the CPU, where the port runs its plain
 versions)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,11 @@ from benchmark.harness import frames, loop, spec, weights
 from benchmark.reference import models, ops, pipeline
 
 torch.set_num_threads(4)
+
+_BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+# each configuration of BENCHMARK.json with the first of its cells
+FIRST_CELL = {c["name"]: next(w["name"] for w in _BENCH["workloads"] if w["config"] == c["name"])
+              for c in _BENCH["configs"]}
 
 
 @pytest.fixture(scope="module")
@@ -21,14 +28,14 @@ def _port(config_name, seed=3):
     """(config, the port's facade, the reference), both holding the
     configuration's weights: its checkpoints, or the leaves seeded from
     ``seed``; float32 on the CPU."""
-    cfg = spec.load_cell({"unet32-resnet18": "unet32.batch512", "unet64-resnet18": "unet64.batch512"}[config_name]).config
+    cfg = spec.load_cell(FIRST_CELL[config_name]).config
     cfg["dtype"] = "float32"
     cpu = torch.device("cpu")
     seeded = weights.make(cfg, seed, cpu)
     return cfg, loop.build(cfg, spec.ROOT, cpu, seeded), pipeline.Reference(cfg, spec.ROOT, cpu, seeded=seeded)
 
 
-@pytest.mark.parametrize("config_name", ["unet32-resnet18", "unet64-resnet18"])
+@pytest.mark.parametrize("config_name", list(FIRST_CELL))
 def test_models_match_the_port(config_name):
     cfg, cv, ref = _port(config_name)
     g = torch.Generator().manual_seed(3)
@@ -41,7 +48,7 @@ def test_models_match_the_port(config_name):
         np.testing.assert_allclose(ref.cl_fn(ref.cl, sq).numpy(), cl(sq).numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("config_name", ["unet32-resnet18", "unet64-resnet18"])
+@pytest.mark.parametrize("config_name", list(FIRST_CELL))
 def test_pipeline_matches_the_port(scenes, config_name):
     cfg, cv, ref = _port(config_name)
     out = cv.engine.process_batch(scenes.numpy())
@@ -142,8 +149,8 @@ def test_npz_loader_reads_every_leaf():
     assert n > 50
 
 
-@pytest.mark.parametrize("path, leaves", [("best_extractor.npz", models.unet_leaves(32)),
-                                          ("best_classifier.npz", models.resnet18_leaves(64))])
+@pytest.mark.parametrize("path, leaves", [("best_extractor.npz", models.arch("unet").leaves(32)),
+                                          ("best_classifier.npz", models.arch("resnet18").leaves(64))])
 def test_leaf_shapes_are_the_checkpoints(path, leaves):
     flat, _ = models.load_npz(spec.ROOT / "weights" / path)
     assert {k: v.shape for k, v in flat.items()} == leaves
@@ -153,7 +160,7 @@ def test_seeded_weights_follow_the_seed():
     cfg = spec.load_cell("unet64.batch512").config
     cpu = torch.device("cpu")
     a, b, c = (weights.make(cfg, s, cpu) for s in (2**31 + 1, 2**31 + 1, 2**31 + 2))
-    assert set(a) == {"extractor"} and set(a["extractor"]) == set(models.unet_leaves(64))
+    assert set(a) == {"extractor"} and set(a["extractor"]) == set(models.arch("unet").leaves(64))
     k = "params/down4/conv/conv2/kernel"
     assert np.array_equal(a["extractor"][k], b["extractor"][k]) and not np.array_equal(a["extractor"][k], c["extractor"][k])
     served = torch.from_numpy(a["extractor"][k]).to(torch.bfloat16).float().numpy()
