@@ -43,8 +43,25 @@ logger = logging.getLogger(__name__)
 _ARCH_KEYS_BY_MODEL = {
     "unet": ("base", "bilinear"),
     "yolo": ("width",),
+    "yolo11_seg": ("depth", "width", "max_channels", "nc"),
     "resnet18": ("width", "num_classes"),
 }
+
+# the checkpoint each model id loads when no file is given; an id without
+# one of its own (yolo11_seg) builds with random weights, never another
+# model's file
+_DEFAULT_WEIGHTS = {
+    ("extractor", "unet"): constants.BEST_EXTRACTOR_WEIGHTS,
+    ("extractor", "yolo"): constants.BEST_YOLO_EXTRACTOR,
+    ("classifier", "resnet18"): constants.BEST_CLASSIFIER_WEIGHTS,
+    ("classifier", "yolo"): constants.BEST_YOLO_CLASSIFIER,
+}
+
+
+def default_weights(kind: str, model_id: str | None) -> str | None:
+    """The shipped checkpoint of ``model_id`` (None: the kind's default
+    model), or None where it has none."""
+    return _DEFAULT_WEIGHTS.get((kind, model_id or ("unet" if kind == "extractor" else "resnet18")))
 
 
 def _arch_kwargs_from_metadata(metadata: dict, model_id: str) -> dict:
@@ -104,14 +121,12 @@ class ChessVision:
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self._board_extractor: Any = None  # (module, spec)
         self._classifier: Any = None
-        # explicit weights win; None means the model id's default
-        self._board_extractor_weights = board_extractor_weights or (
-            constants.BEST_YOLO_EXTRACTOR if board_extractor_model_id == "yolo" else constants.BEST_EXTRACTOR_WEIGHTS
-        )
+        # explicit weights win; None means the model id's own checkpoint,
+        # or random weights from seed 0 for an id that ships none
+        self._board_extractor_weights = board_extractor_weights or default_weights(
+            "extractor", board_extractor_model_id)
         self._board_extractor_model_id = board_extractor_model_id
-        self._classifier_weights = classifier_weights or (
-            constants.BEST_YOLO_CLASSIFIER if classifier_model_id == "yolo" else constants.BEST_CLASSIFIER_WEIGHTS
-        )
+        self._classifier_weights = classifier_weights or default_weights("classifier", classifier_model_id)
         self._classifier_model_id = classifier_model_id
         self._dtype = dtype
         self._model_kwargs = model_kwargs or {}

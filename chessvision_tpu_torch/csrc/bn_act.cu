@@ -1,8 +1,13 @@
-// Inference BatchNorm, residual and ReLU in one pass, for Hopper (sm_90a).
+// Inference BatchNorm, residual and activation in one pass, for Hopper (sm_90a).
 //
 //   t = (x[n, c, h, w] - mean[c]) * mul[c] + bias[c]     (mul = rsqrt(var + eps) * weight)
-//   t = t + residual[n, c, h, w]                          (where a residual is given)
-//   out[n, c, h, w] = relu(t)                             (where asked), in bf16 or float32
+//   t = t + residual[n, c, h, w]                          (where a residual is given, before the activation)
+//   t = relu(t) or silu(t) = t / (1 + exp(-t))            (where asked)
+//   out[n, c, h, w] = t [+ residual[n, c, h, w]]          (a residual after the activation), in bf16 or float32
+//
+// The residual is bf16 or float32.  ReLU and the residual before it are
+// the ResNet's (Flax's order); SiLU with the residual after it is the YOLO
+// family's Bottleneck, x + cv2(cv1(x)) where cv2 ends in SiLU.
 //
 // No TPU kernel of the repository corresponds: in the JAX package XLA
 // fuses Flax's BatchNorm on the running statistics (flax.linen.normalization
@@ -21,11 +26,18 @@
 // is not dense (a transposed view) takes a kernel that reads it through
 // its four strides, one element a thread, and writes a contiguous NCHW map.
 //
-// Rounding: every operation is __fsub_rn / __fmul_rn / __fadd_rn, so nvcc
-// contracts nothing into an FMA, the ReLU keeps a NaN as torch's
-// clamp_min does, and the bf16 store rounds to nearest even with
+// Rounding: every operation is __fsub_rn / __fmul_rn / __fadd_rn /
+// __fdiv_rn, so nvcc contracts nothing into an FMA, the ReLU keeps a NaN as
+// torch's clamp_min does, SiLU's exp is expf (libdevice's, as torch.exp's
+// float kernel), and the bf16 store rounds to nearest even with
 // __float2bfloat16_rn, the conversion torch's own cast uses on this card:
 // the kernel gives the plain version's (ops/bn_act.py:bn_act_plain) bits.
+//
+// A residual that is a channel slice of a wider map (the YOLO C3k2's second
+// half of cv1's output) is read in place: in the dense kernel it is dense
+// in blocks of res_block elements that lie res_pitch elements apart (one
+// block for a dense residual; a batch item of an NCHW slice; a pixel of an
+// NHWC slice).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +49,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC = 8;  // elements a thread of the dense kernel
 constexpr int NOTHING_LAUNCHED = -1;
+// activations (a template argument: each kernel's code holds one)
+constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2;
 
 struct Channels {
   const float* mean;
@@ -79,41 +93,62 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[VEC]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+struct Residual {
+  const void* p;  // null: none
+  bool bf16;      // else float32
+  bool after;     // added after the activation, else before
+};
+
+__device__ __forceinline__ float res_at(const Residual& r, int64_t i) {
+  return r.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(r.p)[i]) : static_cast<const float*>(r.p)[i];
+}
+
 // The plain version's arithmetic on one element, in its order.
-__device__ __forceinline__ float bn_one(float x, int c, const Channels& ch, bool has_res, float r, bool relu) {
+template <int ACT>
+__device__ __forceinline__ float bn_one(float x, int c, const Channels& ch, const Residual& res, float r) {
   float t = __fadd_rn(__fmul_rn(__fsub_rn(x, ch.mean[c]), ch.mul[c]), ch.bias[c]);
-  if (has_res) t = __fadd_rn(t, r);
-  if (relu) t = isnan(t) ? t : fmaxf(t, 0.0f);
+  const bool has_res = res.p != nullptr;
+  if (has_res && !res.after) t = __fadd_rn(t, r);
+  if (ACT == ACT_RELU) t = isnan(t) ? t : fmaxf(t, 0.0f);
+  if (ACT == ACT_SILU) t = __fdiv_rn(t, __fadd_rn(1.0f, expf(-t)));
+  if (has_res && res.after) t = __fadd_rn(t, r);
   return t;
 }
 
-// x, residual and out dense in one memory order; element i of it has
-// channel (i / inner) % channels (inner = h * w for NCHW, 1 for NHWC).
-template <typename Tin, typename Tout>
+// x and out dense in one memory order; element i of it has channel
+// (i / inner) % channels (inner = h * w for NCHW, 1 for NHWC), and the
+// residual's element (i / res_block) * res_pitch + i % res_block (res_block
+// a multiple of VEC, or n).
+template <typename Tin, typename Tout, int ACT>
 __global__ void __launch_bounds__(THREADS) bn_act_dense_kernel(
-    const Tin* __restrict__ x, Channels ch, const float* __restrict__ res, Tout* __restrict__ out,
-    int64_t n, int64_t inner, int channels, bool relu) {
+    const Tin* __restrict__ x, Channels ch, Residual res, Tout* __restrict__ out,
+    int64_t n, int64_t inner, int channels, int64_t res_block, int64_t res_pitch) {
   const int64_t i0 = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (i0 >= n) return;
-  const bool has_res = res != nullptr;
+  const bool has_res = res.p != nullptr;
   const int64_t q = i0 / inner;
   int64_t r = i0 - q * inner;
   int c = (int)(q % channels);
   float v[VEC], rv[VEC] = {};
   const bool whole = i0 + VEC <= n;
+  int64_t ri = i0;
+  if (has_res && res_block < n) ri = (i0 / res_block) * res_pitch + i0 % res_block;
   if (whole) {
     load8(x + i0, v);
-    if (has_res) load8(res + i0, rv);
+    if (has_res) {
+      if (res.bf16) load8(static_cast<const __nv_bfloat16*>(res.p) + ri, rv);
+      else load8(static_cast<const float*>(res.p) + ri, rv);
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       v[k] = i0 + k < n ? to_float(x[i0 + k]) : 0.0f;
-      rv[k] = has_res && i0 + k < n ? res[i0 + k] : 0.0f;
+      rv[k] = has_res && i0 + k < n ? res_at(res, ri + k) : 0.0f;
     }
   }
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    v[k] = bn_one(v[k], c, ch, has_res, rv[k], relu);
+    v[k] = bn_one<ACT>(v[k], c, ch, res, rv[k]);
     if (++r == inner) {
       r = 0;
       if (++c == channels) c = 0;
@@ -131,10 +166,10 @@ struct Strides {
 };
 
 // x and residual through their strides; out contiguous NCHW.
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, int ACT>
 __global__ void __launch_bounds__(THREADS) bn_act_strided_kernel(
-    const Tin* __restrict__ x, Strides sx, Channels ch, const float* __restrict__ res, Strides sr,
-    Tout* __restrict__ out, int64_t n, int channels, int height, int width, bool relu) {
+    const Tin* __restrict__ x, Strides sx, Channels ch, Residual res, Strides sr,
+    Tout* __restrict__ out, int64_t n, int channels, int height, int width) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const int w = (int)(i % width);
@@ -144,53 +179,73 @@ __global__ void __launch_bounds__(THREADS) bn_act_strided_kernel(
   const int c = (int)(t % channels);
   const int64_t b = t / channels;
   const float xv = to_float(x[b * sx.n + c * sx.c + h * sx.h + w * sx.w]);
-  const bool has_res = res != nullptr;
-  const float rv = has_res ? res[b * sr.n + c * sr.c + h * sr.h + w * sr.w] : 0.0f;
-  out[i] = from_float<Tout>(bn_one(xv, c, ch, has_res, rv, relu));
+  const float rv = res.p != nullptr ? res_at(res, b * sr.n + c * sr.c + h * sr.h + w * sr.w) : 0.0f;
+  out[i] = from_float<Tout>(bn_one<ACT>(xv, c, ch, res, rv));
 }
 
 inline unsigned int blocks_for(int64_t threads) { return (unsigned int)((threads + THREADS - 1) / THREADS); }
 
-template <typename Tin, typename Tout>
-void launch(const void* x, Channels ch, const void* res, void* out, int64_t n, int channels, int height,
-            int width, int64_t inner, bool dense, Strides sx, Strides sr, bool relu, cudaStream_t stream) {
+struct Shape {
+  int64_t n;
+  int channels, height, width;
+  int64_t inner, res_block, res_pitch;
+};
+
+template <typename Tin, typename Tout, int ACT>
+void launch_act(const void* x, Channels ch, Residual res, void* out, const Shape& s, bool dense, Strides sx,
+                Strides sr, cudaStream_t stream) {
   if (dense) {
-    bn_act_dense_kernel<Tin, Tout><<<blocks_for((n + VEC - 1) / VEC), THREADS, 0, stream>>>(
-        (const Tin*)x, ch, (const float*)res, (Tout*)out, n, inner, channels, relu);
+    bn_act_dense_kernel<Tin, Tout, ACT><<<blocks_for((s.n + VEC - 1) / VEC), THREADS, 0, stream>>>(
+        (const Tin*)x, ch, res, (Tout*)out, s.n, s.inner, s.channels, s.res_block, s.res_pitch);
   } else {
-    bn_act_strided_kernel<Tin, Tout><<<blocks_for(n), THREADS, 0, stream>>>(
-        (const Tin*)x, sx, ch, (const float*)res, sr, (Tout*)out, n, channels, height, width, relu);
+    bn_act_strided_kernel<Tin, Tout, ACT><<<blocks_for(s.n), THREADS, 0, stream>>>(
+        (const Tin*)x, sx, ch, res, sr, (Tout*)out, s.n, s.channels, s.height, s.width);
   }
+}
+
+template <typename Tin, typename Tout>
+void launch(const void* x, Channels ch, Residual res, void* out, const Shape& s, bool dense, Strides sx,
+            Strides sr, int act, cudaStream_t stream) {
+  if (act == ACT_RELU) launch_act<Tin, Tout, ACT_RELU>(x, ch, res, out, s, dense, sx, sr, stream);
+  else if (act == ACT_SILU) launch_act<Tin, Tout, ACT_SILU>(x, ch, res, out, s, dense, sx, sr, stream);
+  else launch_act<Tin, Tout, ACT_NONE>(x, ch, res, out, s, dense, sx, sr, stream);
 }
 
 }  // namespace
 
 // x: (batch, channels, height, width), bf16 (in_bf16) or float32; mean,
-// mul, bias: float32 (channels); residual: float32 of x's shape, or null;
-// out: bf16 (out_bf16) or float32.  dense: x, residual and out are dense in
-// one memory order (inner = height * width for NCHW, 1 for NHWC) and
-// 16-byte aligned, and x's strides are not read; otherwise x and residual
-// are read through their strides (in elements) and out is contiguous NCHW.
-// Launches on `stream` and returns cudaGetLastError() of the launch, or
-// NOTHING_LAUNCHED for a map with no element.
+// mul, bias: float32 (channels); residual: bf16 (res_bf16) or float32 of
+// x's shape, or null, added after the activation (res_after) or before it;
+// act: 0 none, 1 ReLU, 2 SiLU; out: bf16 (out_bf16) or float32.  dense: x
+// and out are dense in one memory order (inner = height * width for NCHW, 1
+// for NHWC) and 16-byte aligned, x's strides are not read, and the residual
+// is read in blocks of res_block elements res_pitch apart (both multiples
+// of 8, 16-byte aligned; res_block = n for a dense one); otherwise x and
+// residual are read through their strides (in elements) and out is
+// contiguous NCHW.  Launches on `stream` and returns cudaGetLastError() of
+// the launch, or NOTHING_LAUNCHED for a map with no element.
 extern "C" int bn_act_launch(const void* x, const void* mean, const void* mul, const void* bias,
-                             const void* residual, void* out, int in_bf16, int out_bf16, int relu,
-                             int batch, int channels, int height, int width, int dense, int64_t inner,
+                             const void* residual, void* out, int in_bf16, int out_bf16, int act,
+                             int res_bf16, int res_after, int batch, int channels, int height, int width,
+                             int dense, int64_t inner, int64_t res_block, int64_t res_pitch,
                              int64_t sxn, int64_t sxc, int64_t sxh, int64_t sxw,
                              int64_t srn, int64_t src, int64_t srh, int64_t srw, void* stream) {
   const int64_t n = (int64_t)batch * channels * height * width;
   if (n == 0) return NOTHING_LAUNCHED;
-  if (channels < 1 || (dense && inner < 1)) return (int)cudaErrorInvalidValue;
+  if (channels < 1 || act < ACT_NONE || act > ACT_SILU || (dense && (inner < 1 || res_block < 1)))
+    return (int)cudaErrorInvalidValue;
   const Channels ch{(const float*)mean, (const float*)mul, (const float*)bias};
+  const Residual res{residual, res_bf16 != 0, res_after != 0};
+  const Shape shape{n, channels, height, width, inner, res_block, res_pitch};
   const Strides sx{sxn, sxc, sxh, sxw}, sr{srn, src, srh, srw};
   const auto s = (cudaStream_t)stream;
   if (in_bf16 && out_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, ch, residual, out, n, channels, height, width, inner, dense, sx, sr, relu, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, ch, res, out, shape, dense, sx, sr, act, s);
   else if (in_bf16)
-    launch<__nv_bfloat16, float>(x, ch, residual, out, n, channels, height, width, inner, dense, sx, sr, relu, s);
+    launch<__nv_bfloat16, float>(x, ch, res, out, shape, dense, sx, sr, act, s);
   else if (out_bf16)
-    launch<float, __nv_bfloat16>(x, ch, residual, out, n, channels, height, width, inner, dense, sx, sr, relu, s);
+    launch<float, __nv_bfloat16>(x, ch, res, out, shape, dense, sx, sr, act, s);
   else
-    launch<float, float>(x, ch, residual, out, n, channels, height, width, inner, dense, sx, sr, relu, s);
+    launch<float, float>(x, ch, res, out, shape, dense, sx, sr, act, s);
   return (int)cudaGetLastError();
 }

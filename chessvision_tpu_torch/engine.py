@@ -33,6 +33,9 @@ its own whole batches.
 PyTorch runs eagerly, so there is no compiled program: the pipeline is
 ``_pipeline_core`` called under ``torch.inference_mode`` with TF32 off
 (``utils.full_f32``), which keeps every float32 stage in full float32.
+The one exception is an extractor that splits its forward into
+``capturable`` and ``finish`` (``models/yolo11_seg.py``): on the card the
+engine replays its ``capturable`` stage as a CUDA graph (``_GraphedExtractor``).
 """
 
 from __future__ import annotations
@@ -337,6 +340,77 @@ def _arbitrate_chunk(
         return probs, bsel, q1, use
 
 
+# input shapes whose extractor graphs an engine keeps; a shape beyond them
+# runs eagerly.  A server's power-of-two micro-batches up to 64 and a batch
+# or stream size fit.
+_GRAPHS_KEPT = 8
+# replays of an extractor's captured stage so far (the kernels they run are
+# launched by the graph, not by the ops that count their own launches)
+graph_replays = 0
+
+
+class _CapturedStage:
+    """One CUDA graph of ``stage`` at one input: its input buffer, the
+    graph, and the outputs each replay writes."""
+
+    def __init__(self, stage: Callable[[torch.Tensor], Any], x: torch.Tensor) -> None:
+        self.x = x.clone()
+        current = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            stage(self.x)  # cuDNN and cuBLAS choose and load their kernels outside the capture
+        current.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = stage(self.x)
+
+    def __call__(self, x: torch.Tensor) -> Any:
+        global graph_replays
+        self.x.copy_(x)
+        self.graph.replay()
+        graph_replays += 1
+        return self.out
+
+
+class _GraphedExtractor(nn.Module):
+    """An extractor whose ``capturable`` stage is replayed as a CUDA graph.
+
+    At B=1 the host's launches, not the card, set the pace of an eager
+    forward: on an H100's host YOLO11-seg's ~350 launches take 17–22 ms
+    against a few ms of kernels.  So in inference on a CUDA device the
+    engine runs an extractor with ``capturable(x)`` (fixed-shape device
+    work, no host sync) and ``finish(out, x)`` through this module: the
+    first stage is captured once for each of the first ``_GRAPHS_KEPT``
+    input shapes, at its first call there, and replayed after; ``finish``
+    runs eagerly on the replay's outputs.  A later shape, and every call in
+    training, with a gradient or off the card, is the extractor's own
+    forward.
+
+    A graph holds the weights of its capture (the parameters' memory and
+    what the forward made of them, such as BatchNorm's folded scale): the
+    extractor's weights are fixed once the engine has run it, and new
+    weights take a new engine.  One caller at a time: a replay rewrites
+    the outputs of the last."""
+
+    def __init__(self, extractor: nn.Module) -> None:
+        super().__init__()
+        self.extractor = extractor
+        self.graphs: dict[tuple, _CapturedStage] = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.extractor
+        if not x.is_cuda or self.training or torch.is_grad_enabled():
+            return m(x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        stage = self.graphs.get(key)
+        if stage is None:
+            if len(self.graphs) >= _GRAPHS_KEPT:
+                return m(x)
+            stage = self.graphs[key] = _CapturedStage(m.capturable, x)
+        return m.finish(stage(x), x)
+
+
 def _pipeline_core(
     extractor: nn.Module,
     classifier: nn.Module,
@@ -591,7 +665,10 @@ class Engine:
     the mesh's device.  ``refine_grid`` None reads ``CVTPU_REFINE``
     ("arbitrate" when unset).  ``arbitrate_chunk`` counts boards of the
     whole batch: None gives each rank a chunk of ``CVTPU_ARBITRATE_CHUNK``
-    boards, or of 512 when unset, and each rank chunks its own rows."""
+    boards, or of 512 when unset, and each rank chunks its own rows.
+    An extractor with ``capturable`` and ``finish`` runs as CUDA graph
+    replays on the card (``_GraphedExtractor``): its weights are fixed once
+    the engine has run it."""
 
     def __init__(
         self,
@@ -617,7 +694,8 @@ class Engine:
             arbitrate_chunk = (int(env_chunk) if env_chunk else _ARBITRATE_CHUNK) * n
         # each rank chunks its own rows
         self._arbitrate_chunk = max(1, arbitrate_chunk // n)
-        self._extractor = mesh_lib.replicate(mesh, extractor.to(self.device)).eval()
+        extractor = mesh_lib.replicate(mesh, extractor.to(self.device)).eval()
+        self._extractor = _GraphedExtractor(extractor).eval() if hasattr(extractor, "capturable") else extractor
         self._classifier = mesh_lib.replicate(mesh, classifier.to(self.device)).eval()
         self._cls_probs_flag = classifier_outputs_probabilities
 

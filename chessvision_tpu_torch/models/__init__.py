@@ -1,7 +1,8 @@
 """Model registry of the port (counterpart of
 ``chessvision_tpu/models/__init__.py``): extractor ids ``unet`` and
 ``yolo``, classifier ids ``resnet18`` and ``yolo``, each with the contract
-flags the engine reads."""
+flags the engine reads; and the port's own extractor id ``yolo11_seg``
+(Ultralytics' YOLO11-seg, which the JAX package has not)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 from chessvision_tpu_torch.models.resnet import ResNet, resnet18
 from chessvision_tpu_torch.models.unet import UNet
 from chessvision_tpu_torch.models.yolo import YoloCls, YoloSeg
+from chessvision_tpu_torch.models.yolo11_seg import YOLO11Seg
 
 __all__ = [
     "UNet",
@@ -20,6 +22,7 @@ __all__ = [
     "resnet18",
     "YoloCls",
     "YoloSeg",
+    "YOLO11Seg",
     "ModelSpec",
     "EXTRACTORS",
     "CLASSIFIERS",
@@ -40,6 +43,7 @@ class ModelSpec:
 EXTRACTORS: dict[str, ModelSpec] = {
     "unet": ModelSpec("unet", lambda **kw: UNet(**kw), (256, 256), 3),
     "yolo": ModelSpec("yolo", lambda **kw: YoloSeg(**kw), (256, 256), 3),
+    "yolo11_seg": ModelSpec("yolo11_seg", lambda **kw: YOLO11Seg(**kw), (256, 256), 3),
 }
 
 CLASSIFIERS: dict[str, ModelSpec] = {

@@ -9,9 +9,10 @@ of their weight (weights cast once: the inference contract of
 ``set_compute_dtype``).  ``BatchNorm2d`` computes in float32 and has the
 Flax train path: batch statistics, running averages updated with the
 biased batch variance.  In inference (eval mode, no gradient)
-``BatchNorm2d.act`` normalizes, adds a residual, applies ReLU and stores the
-result once in the dtype its consumer reads (the ``bn_act`` kernel), as
-XLA's fusion does in the JAX program.
+``BatchNorm2d.act`` normalizes, adds a residual, applies ReLU (or SiLU,
+with the residual before or after it) and stores the result once in the
+dtype its consumer reads (the ``bn_act`` kernel), as XLA's fusion does in
+the JAX program.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from chessvision_tpu_torch.ops.bn_act import bn_act
+from chessvision_tpu_torch.ops.bn_act import bn_act, epilogue
 from chessvision_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_differentiable
 
 
@@ -71,21 +72,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     def act(
         self,
         x: torch.Tensor,
-        relu: bool = True,
+        act: str = "relu",
         residual: torch.Tensor | None = None,
         out_dtype: torch.dtype = torch.float32,
     ) -> torch.Tensor:
-        """``relu(bn(x) [+ residual])``.  In inference (eval mode, no
-        gradient) one ``bn_act`` pass in Flax's order, stored in
-        ``out_dtype``: the dtype of the consumer that reads it.  Otherwise
-        (train mode, or a gradient through frozen statistics) the float32
-        ops of ``forward``, whatever ``out_dtype``."""
+        """``relu(bn(x) [+ residual])`` by default; ``act`` is the epilogue
+        of ``ops.bn_act`` (``"none"``; ``"silu"``; ``"silu+res"``:
+        ``silu(bn(x)) + residual``).  In inference (eval mode, no gradient)
+        one ``bn_act`` pass in Flax's order, stored in ``out_dtype``: the
+        dtype of the consumer that reads it.  Otherwise (train mode, or a
+        gradient through frozen statistics) the float32 ops of ``forward``,
+        whatever ``out_dtype``."""
         if self.training or torch.is_grad_enabled():
+            code, after = epilogue(act)
             y = self(x)
-            if residual is not None:
+            if residual is not None and not after:
                 y = y + residual
-            return F.relu(y) if relu else y
-        return bn_act(x, self.running_mean, self._eval_mul(), self.bias, residual, relu, out_dtype)
+            y = F.relu(y) if code == 1 else F.silu(y) if code == 2 else y
+            return y + residual if residual is not None and after else y
+        return bn_act(x, self.running_mean, self._eval_mul(), self.bias, residual, act, out_dtype)
 
     def _eval_mul(self) -> torch.Tensor:
         """``rsqrt(running_var + eps) · weight``, made once and again only

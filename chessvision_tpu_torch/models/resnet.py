@@ -34,7 +34,7 @@ class BasicBlock(nn.Module):
         # reader) and the block's output, the next block's residual, in
         # float32 by one pass of bn2 + residual + ReLU
         y = self.conv2(self.bn1.act(self.conv1(x), out_dtype=conv_dtype(self.conv2)))
-        residual = self.down_bn.act(self.down_conv(x), relu=False) if self.has_down else x
+        residual = self.down_bn.act(self.down_conv(x), "none") if self.has_down else x
         return self.bn2.act(y, residual=residual)
 
 

@@ -324,10 +324,10 @@ def capture_bn(fn):
     real = layers.bn_act
     calls: dict = {}
 
-    def recording(x, mean, mul, bias, residual=None, relu=False, out_dtype=torch.float32):
-        key = (tuple(x.shape), x.dtype, residual is not None, relu, out_dtype)
-        calls.setdefault(key, (x, mean, mul, bias, residual, relu, out_dtype))
-        return real(x, mean, mul, bias, residual, relu, out_dtype)
+    def recording(x, mean, mul, bias, residual=None, act="none", out_dtype=torch.float32):
+        key = (tuple(x.shape), x.dtype, residual is not None, act, out_dtype)
+        calls.setdefault(key, (x, mean, mul, bias, residual, act, out_dtype))
+        return real(x, mean, mul, bias, residual, act, out_dtype)
 
     layers.bn_act = recording
     try:
@@ -356,7 +356,7 @@ def check_bn(bnk, args: tuple) -> float:
         diff = (got.float() - want.float()).abs().nan_to_num(nan=float("inf")).max()
         x = args[0]
         fail(f"bn_act differs from its plain version on {tuple(x.shape)} {x.dtype} stride {x.stride()} "
-             f"(residual {args[4] is not None}, relu {args[5]}, out {args[6]}): max |diff| {float(diff)}")
+             f"(residual {args[4] is not None}, {args[5]}, out {args[6]}): max |diff| {float(diff)}")
     return 0.0
 
 
@@ -393,7 +393,7 @@ def bn_edge_cases(seed: int) -> dict:
         for dt in (torch.bfloat16, torch.float32):
             # .to keeps a dense view's strides; the unaligned map is cut after the cast
             xd = x.to(dt)[1:].view(res.shape) if name == "unaligned" else x.to(dt)
-            cases[name] += [(xd, mean, mul, bias, r, relu, out) for r in (None, res) for relu in (False, True)
+            cases[name] += [(xd, mean, mul, bias, r, act, out) for r in (None, res) for act in ("none", "relu")
                             for out in (torch.bfloat16, torch.float32)]
     return cases
 
@@ -410,13 +410,13 @@ def time_bn(bnk, args: tuple, bn) -> dict:
 
     from chessvision_tpu_torch.tools.microbench import event_ms
 
-    x, mean, mul, bias, residual, relu, out_dtype = args
+    x, mean, mul, bias, residual, act, out_dtype = args
 
     def library():
         y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
         if residual is not None:
             y = y + residual
-        return (F.relu(y) if relu else y).to(out_dtype)
+        return (F.relu(y) if act == "relu" else y).to(out_dtype)
 
     n = x.numel()
     io_bytes = n * x.element_size() + n * torch.empty((), dtype=out_dtype).element_size() + 3 * 4 * x.shape[1]
@@ -425,7 +425,7 @@ def time_bn(bnk, args: tuple, bn) -> dict:
     with torch.inference_mode():
         res = {
             "shape": list(x.shape), "in": str(x.dtype), "out": str(out_dtype), "residual": residual is not None,
-            "relu": relu, "ms": event_ms(lambda: bnk.bn_act(*args), iters=20),
+            "relu": act == "relu", "ms": event_ms(lambda: bnk.bn_act(*args), iters=20),
             "plain_ms": event_ms(lambda: bnk.bn_act_plain(*args), iters=5),
             "library_ms": event_ms(library, iters=5), "bytes": io_bytes,
             "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3,

@@ -72,19 +72,20 @@ def _flax_bn(d: dict, x: np.ndarray, residual: bool, relu: bool) -> np.ndarray:
 @pytest.mark.parametrize("relu", [False, True])
 def test_bn_act_plain_matches_flax(in_dtype, residual, relu) -> None:
     d = _bn_inputs(0)
+    act = "relu" if relu else "none"
     x = torch.from_numpy(d["x"]).to(in_dtype)
     want = _flax_bn(d, x.float().numpy(), residual, relu)  # bf16 values are exact in float32
     t = {k: torch.from_numpy(v) for k, v in d.items()}
     res = t["res"] if residual else None
     # Flax's own factor: the same floats, bit for bit
     flax_mul = torch.from_numpy(np.array(jax.lax.rsqrt(jnp.asarray(d["var"]) + EPS) * d["scale"]))
-    np.testing.assert_array_equal(bn_mod.bn_act_plain(x, t["mean"], flax_mul, t["bias"], res, relu).numpy(), want)
+    np.testing.assert_array_equal(bn_mod.bn_act_plain(x, t["mean"], flax_mul, t["bias"], res, act).numpy(), want)
     # the port's factor (torch.rsqrt), rounded apart from XLA's on some channels
     mul = torch.rsqrt(t["var"] + EPS) * t["scale"]
-    got = bn_mod.bn_act(x, t["mean"], mul, t["bias"], res, relu)
+    got = bn_mod.bn_act(x, t["mean"], mul, t["bias"], res, act)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     # stored in bf16: the float32 result rounded once
-    got16 = bn_mod.bn_act(x, t["mean"], mul, t["bias"], res, relu, out_dtype=torch.bfloat16)
+    got16 = bn_mod.bn_act(x, t["mean"], mul, t["bias"], res, act, out_dtype=torch.bfloat16)
     assert got16.dtype == torch.bfloat16
     assert torch.equal(got16, got.to(torch.bfloat16))
 
@@ -94,17 +95,17 @@ def test_bn_act_cpu_layouts_and_checks() -> None:
     t = {k: torch.from_numpy(v) for k, v in d.items()}
     mul = torch.rsqrt(t["var"] + EPS) * t["scale"]
     before = bn_mod.launches
-    want = bn_mod.bn_act(t["x"], t["mean"], mul, t["bias"], t["res"], True)
+    want = bn_mod.bn_act(t["x"], t["mean"], mul, t["bias"], t["res"], "relu")
     # a transposed view and a channels-last map give the same values
     xt = t["x"].transpose(2, 3).contiguous().transpose(2, 3)
     assert not xt.is_contiguous()
-    assert torch.equal(bn_mod.bn_act(xt, t["mean"], mul, t["bias"], t["res"], True), want)
+    assert torch.equal(bn_mod.bn_act(xt, t["mean"], mul, t["bias"], t["res"], "relu"), want)
     xc = t["x"].to(memory_format=torch.channels_last)
-    assert torch.equal(bn_mod.bn_act(xc, t["mean"], mul, t["bias"], t["res"], True), want)
+    assert torch.equal(bn_mod.bn_act(xc, t["mean"], mul, t["bias"], t["res"], "relu"), want)
     # NaN and Inf pass through as torch's ops pass them
     x = t["x"].clone()
     x[0, 0, 0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
-    got = bn_mod.bn_act(x, t["mean"], mul, t["bias"], None, True)
+    got = bn_mod.bn_act(x, t["mean"], mul, t["bias"], None, "relu")
     assert torch.isnan(got[0, 0, 0, 0]) and got[0, 0, 0, 1] == float("inf") and got[0, 0, 0, 2] == 0
     empty = bn_mod.bn_act(t["x"][:0], t["mean"], mul, t["bias"])
     assert empty.shape == (0, 6, 5, 4)
@@ -165,8 +166,8 @@ def _float32_maps(monkeypatch) -> None:
     storage of the eager path before the kernel)."""
     real = bn_mod.bn_act
 
-    def wide(x, mean, mul, bias, residual=None, relu=False, out_dtype=torch.float32):
-        return real(x, mean, mul, bias, residual, relu, torch.float32)
+    def wide(x, mean, mul, bias, residual=None, act="none", out_dtype=torch.float32):
+        return real(x, mean, mul, bias, residual, act, torch.float32)
 
     monkeypatch.setattr(layers, "bn_act", wide)
 
@@ -273,7 +274,7 @@ def test_batchnorm_act_keeps_train_path_and_gradient() -> None:
     assert bn._mul is not mul
     np.testing.assert_allclose(moved.numpy(), bn_mod.bn_act_plain(
         x, bn.running_mean, torch.rsqrt(bn.running_var + bn.eps) * bn.weight.detach(), bn.bias.detach(),
-        relu=True).numpy(), rtol=0, atol=0)
+        act="relu").numpy(), rtol=0, atol=0)
 
 
 # -- the engine -----------------------------------------------------------------------------

@@ -686,7 +686,7 @@ def test_microbench_reports_k1_exact_and_mfu_accounting_on_the_card(capsys) -> N
     assert mfu["rows"][3]["bound_ms"] == pytest.approx(rec["warp_bound_ms"], rel=1e-12)  # one floor, one input
 
 
-def _bn_args(shape, in_dtype, residual: bool, relu: bool, out_dtype, layout: str = "nchw"):
+def _bn_args(shape, in_dtype, residual: bool, act: str, out_dtype, layout: str = "nchw"):
     g = torch.Generator().manual_seed(sum(shape))
     c = shape[1]
     x = 3 * torch.randn(shape, generator=g)
@@ -700,7 +700,7 @@ def _bn_args(shape, in_dtype, residual: bool, relu: bool, out_dtype, layout: str
         x = x.to(memory_format=torch.channels_last)
     elif layout == "transposed":
         x = x.transpose(2, 3).contiguous().transpose(2, 3)
-    return (x, mean.cuda(), mul.cuda(), bias.cuda(), None if res is None else res.cuda(), relu, out_dtype)
+    return (x, mean.cuda(), mul.cuda(), bias.cuda(), None if res is None else res.cuda(), act, out_dtype)
 
 
 @pytest.mark.parametrize("layout", ["nchw", "channels_last", "transposed"])
@@ -715,8 +715,8 @@ def test_bn_act_kernel_equals_plain_bit_for_bit(layout, in_dtype, out_dtype, res
     from chessvision_tpu_torch.ops import bn_act
 
     for shape in ((2, 32, 64, 64), (3, 13, 37, 41)):
-        for relu in (False, True):
-            args = _bn_args(shape, in_dtype, residual, relu, out_dtype, layout)
+        for act in ("none", "relu"):
+            args = _bn_args(shape, in_dtype, residual, act, out_dtype, layout)
             before = bn_act.launches
             got = bn_act.bn_act(*args)
             torch.cuda.synchronize()
@@ -724,14 +724,14 @@ def test_bn_act_kernel_equals_plain_bit_for_bit(layout, in_dtype, out_dtype, res
             want = bn_act.bn_act_plain(*args)
             assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
             bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
-            assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), (shape, relu)
+            assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), (shape, act)
 
 
 def test_bn_act_kernel_on_an_empty_map_launches_nothing() -> None:
     _need_card()
     from chessvision_tpu_torch.ops import bn_act
 
-    args = _bn_args((2, 8, 4, 4), torch.bfloat16, False, True, torch.bfloat16)
+    args = _bn_args((2, 8, 4, 4), torch.bfloat16, False, "relu", torch.bfloat16)
     before = bn_act.launches
     out = bn_act.bn_act(args[0][:0], *args[1:])
     assert out.shape == (0, 8, 4, 4) and bn_act.launches == before
@@ -1128,3 +1128,250 @@ def test_quad_kernel_on_the_second_card_leaves_nothing_on_the_first() -> None:
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec == {"cards": [1], "device": "cuda:1", "launches": 1, "equal": True}, rec
+
+
+# -- YOLO11-seg: bn_act's SiLU epilogues and the extractor on the card ------------------------
+
+
+_EPILOGUES = ("silu", "silu+res", "none")
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "transposed"])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32], ids=["bf16_in", "f32_in"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16_out", "f32_out"])
+@pytest.mark.parametrize("res_dtype", [None, torch.float32, torch.bfloat16], ids=["", "f32_res", "bf16_res"])
+def test_bn_act_silu_epilogues_equal_plain_bit_for_bit(layout, in_dtype, out_dtype, res_dtype) -> None:
+    """The SiLU and post-activation residual epilogues, with a float32 or
+    bf16 residual, at the maps of the ReLU test (NaN and ±Inf in the odd
+    one): the plain version's bits, one launch each; SiLU launches counted."""
+    _need_card()
+    from chessvision_tpu_torch.ops import bn_act
+
+    for shape in ((2, 32, 64, 64), (3, 13, 37, 41)):
+        for act in _EPILOGUES:
+            args = list(_bn_args(shape, in_dtype, res_dtype is not None, act, out_dtype, layout))
+            if res_dtype is not None:
+                args[4] = args[4].to(res_dtype)
+            before, silu = bn_act.launches, bn_act.silu_launches
+            got = bn_act.bn_act(*args)
+            torch.cuda.synchronize()
+            assert bn_act.launches == before + 1 and bn_act.silu_launches == silu + act.startswith("silu")
+            want = bn_act.bn_act_plain(*args)
+            assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+            bits = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), (shape, act)
+
+
+@pytest.mark.parametrize("fmt", ["nchw", "channels_last"])
+@pytest.mark.parametrize("res_dtype", [torch.float32, torch.bfloat16], ids=["f32_res", "bf16_res"])
+def test_bn_act_reads_a_channel_slice_residual_in_place(fmt, res_dtype) -> None:
+    """A residual that is the second channel half of a dense map (the C3k2's
+    ``cv1`` output) takes the dense kernel, read in blocks: the plain
+    version's bits, and the output keeps the map's memory format."""
+    _need_card()
+    from chessvision_tpu_torch.ops import bn_act
+
+    memory_format = torch.channels_last if fmt == "channels_last" else torch.contiguous_format
+    x, mean, mul, bias, _, _, _ = _bn_args((4, 32, 16, 24), torch.bfloat16, False, "none", torch.bfloat16)
+    x = x.contiguous(memory_format=memory_format)
+    wide = torch.randn((4, 64, 16, 24), device="cuda").to(res_dtype).contiguous(memory_format=memory_format)
+    res = wide[:, 32:]
+    assert bn_act._residual_blocks(res, memory_format) not in (None, (res.numel(), res.numel()))
+    got = bn_act.bn_act(x, mean, mul, bias, res, "silu+res", torch.bfloat16)
+    want = bn_act.bn_act_plain(x, mean, mul, bias, res, "silu+res", torch.bfloat16)
+    assert got.is_contiguous(memory_format=memory_format)
+    assert torch.equal(got.contiguous().view(torch.int16), want.contiguous().view(torch.int16))
+
+
+def _yolo11s_calls(batch: int, dtype: torch.dtype) -> list:
+    """The ``bn_act`` argument tuples of one YOLO11s-seg forward on the card
+    at 256², one of each (shape, dtypes, epilogue, residual layout)."""
+    from chessvision_tpu_torch.models import create_extractor, layers
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+
+    torch.manual_seed(0)
+    model, _ = create_extractor("yolo11_seg")
+    model = set_compute_dtype(model, dtype).cuda().eval()
+    real, calls = layers.bn_act, {}
+
+    def recording(x, mean, mul, bias, residual, act, out_dtype):
+        key = (tuple(x.shape), x.dtype, x.stride(), act, out_dtype,
+               None if residual is None else (residual.dtype, residual.stride()))
+        calls.setdefault(key, (x, mean, mul, bias, residual, act, out_dtype))
+        return real(x, mean, mul, bias, residual, act, out_dtype)
+
+    layers.bn_act = recording
+    try:
+        with torch.inference_mode():
+            model(torch.rand((batch, 256, 256, 3), device="cuda"))
+    finally:
+        layers.bn_act = real
+    return list(calls.values())
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bn_act_equals_plain_at_the_yolo11s_seg_shapes(batch, dtype) -> None:
+    """Every distinct ``bn_act`` call of a scale-s forward (SiLU, SiLU then
+    the shortcut, none with a residual), bit for bit."""
+    _need_card()
+    from chessvision_tpu_torch.ops import bn_act
+
+    calls = _yolo11s_calls(batch, dtype)
+    assert sum(c[5] in ("silu", "silu+res") for c in calls) > 20
+    with torch.inference_mode():
+        for args in calls:
+            got, want = bn_act.bn_act(*args), bn_act.bn_act_plain(*args)
+            bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), args[0].shape
+
+
+def _hold_board_head(model) -> None:
+    """Holds the board head: the first P5 anchor detects, its box covers
+    the frame, its coefficients are 1 and the prototypes positive, so the
+    mask covers the frame."""
+    seg = model.model[23]
+    with torch.no_grad():
+        for i, b in enumerate((-8.0, -8.0, 8.0)):
+            seg.cv3[i][2].weight.zero_()
+            seg.cv3[i][2].bias.fill_(b)
+        seg.cv2[2][2].weight.zero_()
+        seg.cv2[2][2].bias.zero_()
+        seg.cv4[2][2].weight.zero_()
+        seg.cv4[2][2].bias.fill_(1.0)
+        seg.proto.cv3.bn.bias.fill_(4.0)
+
+
+def test_yolo11_seg_through_the_engine_on_the_card(monkeypatch) -> None:
+    """``ChessVision(board_extractor_model_id="yolo11_seg")`` at scale s in
+    bf16 (random weights from seed 0, its board head held): its forward on
+    the card makes one SiLU ``bn_act`` launch per SiLU BatchNorm (86) and
+    no ``F.batch_norm`` call, and synchronises nothing with the host;
+    ``process_batch`` at B=2 replays it as a graph, its logits against the
+    same model's float32 forward on the CPU within 0.1% of their largest
+    magnitude (bf16 convolutions over ~30 layers); ``process_image`` and
+    ``run_stream`` give the batch's FENs."""
+    _need_card()
+    import copy
+
+    import torch.nn.functional as F
+
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.engine import preprocess_images
+    from chessvision_tpu_torch.ops import bn_act
+    from chessvision_tpu_torch.synthetic import board_frames
+    from chessvision_tpu_torch.utils import full_f32
+
+    cv = ChessVision(board_extractor_model_id="yolo11_seg", device="cuda")
+    assert cv._board_extractor_weights is None
+    card_model, spec = cv.board_extractor
+    assert spec.model_id == "yolo11_seg"
+    _hold_board_head(card_model)
+    cpu_model = copy.deepcopy(card_model).float().cpu().eval()  # the same (bf16-rounded) weights
+    frames = board_frames(0, 2)[0]
+    assert isinstance(cv.engine._extractor, engine_mod._GraphedExtractor) and cv.engine._extractor.extractor is card_model
+    cv.engine.process_batch(frames)  # builds the kernels and the anchors, captures the graph
+    torch.cuda.synchronize()
+
+    def no_batch_norm(*a, **k):
+        raise AssertionError("F.batch_norm called")
+
+    monkeypatch.setattr(F, "batch_norm", no_batch_norm)
+    silu, replays = bn_act.silu_launches, engine_mod.graph_replays
+    out = cv.engine.process_batch(frames)
+    torch.cuda.synchronize()
+    assert engine_mod.graph_replays == replays + 1 and bn_act.silu_launches == silu
+    assert out.board_found.all()
+    with torch.inference_mode(), full_f32():
+        x = preprocess_images(torch.from_numpy(frames))[0].float() / 255.0
+    xs = x.cuda()
+    with torch.inference_mode():
+        card_model(xs)
+        torch.cuda.synchronize()
+        silu = bn_act.silu_launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card_model(xs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bn_act.silu_launches == silu + 86
+    monkeypatch.undo()
+    with torch.inference_mode(), full_f32():
+        want = cpu_model(x)[..., 0]
+    got = torch.as_tensor(np.asarray(out.logits))
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    print(f"yolo11_seg bf16 card logits against float32 CPU: max |diff| {err:.4g} of max |logit| {scale:.4g}")
+    assert err <= 1e-3 * scale
+    single = cv.process_image(frames[0])
+    assert single.position is not None and single.position.fen == out.fens[0]
+    streamed = list(cv.engine.run_stream([frames], kind="raw"))
+    assert len(streamed) == 1 and bool(streamed[0]["found"].all())
+
+
+def test_yolo11_seg_graph_replay_equals_the_eager_forward() -> None:
+    """The engine's graphs (``engine._GraphedExtractor``): the replayed
+    extractor's logits equal its eager forward's bit for bit at B=1 and
+    B=2; a replay counts in ``graph_replays`` and in no op's launch
+    counter; a parameter the graph reads, changed in place, is seen; the
+    first ``_GRAPHS_KEPT`` shapes are captured and a shape beyond them runs
+    eagerly, as does a call with a gradient."""
+    _need_card()
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.models import create_extractor
+    from chessvision_tpu_torch.models.layers import set_compute_dtype
+    from chessvision_tpu_torch.ops import bn_act
+
+    torch.manual_seed(0)
+    model, _ = create_extractor("yolo11_seg")
+    model = set_compute_dtype(model, torch.bfloat16).cuda().eval()
+    _hold_board_head(model)
+    graphed = engine_mod._GraphedExtractor(model).eval()
+
+    with torch.inference_mode():
+        for b in (1, 2):
+            x = torch.rand((b, 256, 256, 3), device="cuda")
+            first = graphed(x)
+            launches, silu, replays = bn_act.launches, bn_act.silu_launches, engine_mod.graph_replays
+            again = graphed(x.clone())
+            torch.cuda.synchronize()
+            assert (bn_act.launches, bn_act.silu_launches) == (launches, silu)
+            assert engine_mod.graph_replays == replays + 1
+            want = model(x)
+            assert torch.equal(first, want) and torch.equal(again, want)
+        assert len(graphed.graphs) == 2
+    with torch.no_grad():
+        model.model[23].proto.cv3.bn.bias.add_(1.0)  # read by the graph in place
+    with torch.inference_mode():
+        moved = graphed(x)
+        assert torch.equal(moved, model(x)) and not torch.equal(moved, want)
+        for b in range(3, 3 + engine_mod._GRAPHS_KEPT):
+            x = torch.rand((b, 256, 256, 3), device="cuda")
+            replays = engine_mod.graph_replays
+            assert torch.equal(graphed(x), model(x))
+        assert len(graphed.graphs) == engine_mod._GRAPHS_KEPT and engine_mod.graph_replays == replays
+    with torch.enable_grad():
+        replays = engine_mod.graph_replays
+        graphed(torch.rand((1, 256, 256, 3), device="cuda"))
+        assert engine_mod.graph_replays == replays
+
+
+def test_a_warmed_server_replays_every_micro_batch_size(tmp_path) -> None:
+    """``ChessVisionService.warmup`` with the YOLO11-seg extractor captures
+    one graph for each micro-batch size it warms (1, 2, 4, 8, 16), and a
+    single photo after it replays its graph: no capture."""
+    _need_card()
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.serve.server import ChessVisionService
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    cv = ChessVision(board_extractor_model_id="yolo11_seg", device="cuda", lazy_load=False)
+    service = ChessVisionService(local=True, upload_root=str(tmp_path), cv_model=cv)
+    service.warmup()
+    graphs = cv.engine._extractor.graphs
+    assert sorted(k[0][0] for k in graphs) == [1, 2, 4, 8, 16]
+    kept = dict(graphs)
+    replays = engine_mod.graph_replays
+    cv.engine.process_batch(board_frames(0, 1)[0], lite=True)
+    assert engine_mod.graph_replays == replays + 1 and graphs == kept

@@ -146,7 +146,7 @@ def test_registry_has_the_ported_models_only() -> None:
     assert isinstance(ex, models.UNet) and spec.model_id == "unet"
     cl, spec = models.create_classifier(None, width=8)
     assert isinstance(cl, models.ResNet) and spec.model_id == "resnet18"
-    assert sorted(models.EXTRACTORS) == ["unet", "yolo"] and sorted(models.CLASSIFIERS) == ["resnet18", "yolo"]
+    assert sorted(models.EXTRACTORS) == ["unet", "yolo", "yolo11_seg"] and sorted(models.CLASSIFIERS) == ["resnet18", "yolo"]
     for create in (models.create_extractor, models.create_classifier):
         with pytest.raises(ValueError, match="unknown model id"):
             create("detr")
