@@ -51,6 +51,7 @@ from chessvision_tpu_torch import constants, profiling
 from chessvision_tpu_torch.chessboard import labels_to_fen
 from chessvision_tpu_torch.cv_types import BatchResult, ValidationFix
 from chessvision_tpu_torch.ops import gridfix
+from chessvision_tpu_torch.ops import mask as mask_ops
 from chessvision_tpu_torch.ops.color import bgr_to_gray, hflip, round_u8
 from chessvision_tpu_torch.ops.quad import find_quadrangle_batch, scale_quadrangle
 from chessvision_tpu_torch.ops.resize import resize
@@ -567,11 +568,55 @@ def _copy_back(out: dict[str, torch.Tensor], keys: Sequence[str]) -> dict[str, n
         return {k: out[k].cpu().numpy() for k in keys}
 
 
-def _binary_mask(logits: np.ndarray, threshold: float) -> np.ndarray:
-    """Host-side threshold mask of the segmentation logits, uint8 in {0, 255}."""
-    with profiling.span("mask"), np.errstate(over="ignore"):
-        probs_mask = 1.0 / (1.0 + np.exp(-logits, dtype=np.float32))
-        return np.where(probs_mask > threshold, np.uint8(255), np.uint8(0))
+# pixels whose mask the host evaluated ``mask_ops.formula`` at: the band's
+# pixels, or every pixel at a threshold the split does not take
+mask_band_pixels = 0
+
+
+def _device_mask(logits: torch.Tensor, threshold: float) -> dict[str, torch.Tensor]:
+    """The split of the threshold mask where the logits lie
+    (``mask_ops.binary_mask``: one launch of ``csrc/mask.cu`` on the card,
+    counted in ``mask_ops.launches``): ``binary_mask``, and the ``band``'s
+    count and listed pixels, for ``_binary_mask`` to settle after the copy
+    back.  Empty where the split does not take the threshold."""
+    edges = mask_ops.band(threshold)
+    if edges is None:
+        return {}
+    with torch.inference_mode():
+        mask, band = mask_ops.binary_mask(logits, *edges)
+    return {"binary_mask": mask, "band": band}
+
+
+def _binary_mask(
+    logits: np.ndarray, threshold: float, mask: np.ndarray | None = None, band: np.ndarray | None = None
+) -> np.ndarray:
+    """The host's part of the threshold mask of the logits: uint8 in
+    {0, 255}, bit for bit ``mask_ops.formula(logits, threshold)``.
+
+    ``mask`` and ``band`` are ``_device_mask``'s outputs on the same
+    logits, copied back; without them (logits that came back gathered to
+    the host) the host makes the same split itself, in ``_device_mask``'s
+    plain version.  Then the host evaluates the formula at the listed band
+    pixels, and scans the logits for them only where the list overflowed.
+    At a threshold the split does not take, the formula over the whole
+    array."""
+    global mask_band_pixels
+    with profiling.span("mask"):
+        edges = mask_ops.band(threshold)
+        if edges is None:
+            mask_band_pixels += logits.size
+            return mask_ops.formula(logits, threshold)
+        if mask is None:
+            dev = _device_mask(torch.from_numpy(logits), threshold)
+            mask, band = dev["binary_mask"].numpy(), dev["band"].numpy()
+        n = int(band[0])
+        if n:
+            lo, hi = np.float32(edges[0]), np.float32(edges[1])
+            flat = logits.reshape(-1)
+            idx = band[1 : 1 + n] if n <= len(band) - 1 else np.flatnonzero((flat > lo) & (flat <= hi))
+            mask.reshape(-1)[idx] = mask_ops.formula(flat[idx], threshold)
+            mask_band_pixels += len(idx)
+        return mask
 
 
 def _fen_strings(
@@ -834,7 +879,7 @@ class Engine:
         out = self.run_device(images, threshold)
         b = images.shape[0]
         if mesh_lib.spans_processes(self.mesh):
-            host = dict(out)  # gathered to the host already
+            host = dict(out)  # gathered to the host already: the host splits the mask
             host["binary_mask"] = _binary_mask(host["logits"], threshold)
         elif lite and self.mesh is None:
             keep = ("found", "quadrangle", "probabilities") + (("board_image",) if include_board else ())
@@ -843,8 +888,10 @@ class Engine:
             host["binary_mask"] = np.zeros((b, 0, 0), np.uint8)
             host.setdefault("board_image", np.zeros((b, 0, 0), np.uint8))
         else:
+            out = {**out, **_device_mask(out["logits"], threshold)}
             host = _copy_back(out, tuple(out))
-            host["binary_mask"] = _binary_mask(host["logits"], threshold)
+            host["binary_mask"] = _binary_mask(
+                host["logits"], threshold, host.get("binary_mask"), host.pop("band", None))
 
         square_names = constants.SQUARE_NAMES_FLIPPED if flip else constants.SQUARE_NAMES_NORMAL
         probs = host["probabilities"]

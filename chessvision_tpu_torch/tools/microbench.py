@@ -16,6 +16,11 @@ card's memory rate).  K1 runs only on the card: ``--which warp``,
 ``route`` (and ``all``) raise with ``--device cpu`` rather than time the
 plain version under K1's name.
 
+``--which mask``: the threshold mask's kernel (``csrc/mask.cu``) at B=1
+and B=128 of 256² logits beside its bytes floor and its plain version,
+and on the host the formula it replaced against the host's part that is
+left (card only).
+
 ``--which route``: the sweep that sets K1's route rule
 (``hat_resample.warp_plan``): both routes of ``warp_twopass`` (the fused
 kernel, and pass 1 + pass 2) timed on the same inputs, in turns (fused,
@@ -27,7 +32,7 @@ and at the main path's B=128 512²; each row with the route the rule
 picks, the routes' largest difference (0: they give the same floats) and
 the function's floor.
 
-    python -m chessvision_tpu_torch.tools.microbench [--which warp|quad|route|all] [--iters 5] [--device cpu]
+    python -m chessvision_tpu_torch.tools.microbench [--which warp|quad|mask|route|all] [--iters 5] [--device cpu]
 
 Prints one JSON line.
 """
@@ -43,8 +48,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from chessvision_tpu_torch import engine as engine_mod
 from chessvision_tpu_torch.engine import _DEST
 from chessvision_tpu_torch.ops import hat_resample as k1
+from chessvision_tpu_torch.ops import mask as mask_ops
 from chessvision_tpu_torch.ops.color import bgr_to_gray
 from chessvision_tpu_torch.ops.quad import connected_component, decimate_to_quad, support_points
 from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
@@ -207,6 +214,78 @@ def cold_ms(fn: Callable[[], Any], iters: int, flush_bytes: int = 256 << 20) -> 
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+# ---------------- the threshold mask ----------------
+MASK_BATCHES = (1, 128)
+
+
+# about 50 ms of the card's clock: the spin that holds the stream while the host queues the timed calls
+_HOLD_CYCLES = 100_000_000
+
+
+def kernel_ms(fn: Callable[[], Any], iters: int, flush_bytes: int = 0) -> float:
+    """Mean device time (ms) of a call of ``fn``, by CUDA events around each
+    call.  The calls are queued behind a spin kernel, so each pair of
+    events brackets the device's work of one call and not the host's
+    launch of it, which takes longer than a short kernel runs.  With
+    ``flush_bytes`` a buffer of that size is written before each call,
+    outside its events, so the call finds its inputs outside the L2 cache.
+    Raises where the device reached the first call before the host had
+    queued the last."""
+    scratch = torch.empty(flush_bytes // 4, device=torch.cuda.current_device()) if flush_bytes else None
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(_HOLD_CYCLES)
+    for start, end in events:
+        if scratch is not None:
+            scratch.zero_()
+        start.record()
+        fn()
+        end.record()
+    held = not events[0][0].query()
+    torch.cuda.synchronize()
+    if not held:
+        raise RuntimeError("kernel_ms: the device reached the timed calls before the host had queued them all")
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bench_mask(iters: int, device: torch.device, seed: int = 0) -> dict[str, Any]:
+    """For B=1 and B=128 seeded N(0, 8²) logits of 256² at t=0.5: the mask
+    kernel's device ms a call (``kernel_ms``: the count's zeroing and the
+    kernel), warm (back to back: the 33.5 MB of logits at B=128 fit the
+    50 MB L2) and cold (the L2 flushed before each call), its bytes floor (4 B read and 1 written a pixel at the card's
+    memory rate), its plain version's ms, whether the two agree, the band
+    pixels; and on the host the median ms of the formula the kernel
+    replaced and of ``engine._binary_mask`` given the kernel's outputs
+    (which settles the listed band pixels)."""
+    if device.type != "cuda":
+        raise ValueError("microbench --which mask times the mask kernel, which runs only on the card")
+    lo, hi = mask_ops.band(0.5)
+    bytes_per_s = card.peaks(card.card_fields(device)["device"])["bytes_per_s"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res: dict[str, Any] = {}
+    for b in MASK_BATCHES:
+        x = torch.randn((b, MASK_SIZE, MASK_SIZE), generator=gen, device=device) * 8
+        mask, band = mask_ops.binary_mask(x, lo, hi)
+        want_mask, want_band = mask_ops.binary_mask_plain(x, lo, hi)
+        host_x, host_mask, host_band = x.cpu().numpy(), mask.cpu().numpy(), band.cpu().numpy()
+        n = int(host_band[0])
+        res[f"mask_b{b}"] = rec = {
+            "kernel_ms": kernel_ms(lambda: mask_ops.binary_mask(x, lo, hi), iters),
+            "kernel_cold_ms": kernel_ms(lambda: mask_ops.binary_mask(x, lo, hi), iters, flush_bytes=256 << 20),
+            "bound_ms": 1e3 * x.numel() * 5 / bytes_per_s,
+            "plain_ms": event_ms(lambda: mask_ops.binary_mask_plain(x, lo, hi), iters),
+            "equal": bool(torch.equal(mask, want_mask) and n == int(want_band[0]) and n <= mask_ops.BAND_LIST
+                          and sorted(host_band[1 : 1 + n]) == want_band[1 : 1 + n].tolist()),
+            "band_pixels": n,
+            "host_formula_ms": float(np.median(wall_ms(mask_ops.formula, host_x, 0.5, iters=iters, warmup=1))),
+            "host_settle_ms": float(np.median(wall_ms(
+                lambda: engine_mod._binary_mask(host_x, 0.5, host_mask.copy(), host_band), iters=iters, warmup=1))),
+        }
+        print(f"[bench] mask B={b}: {rec}", file=sys.stderr, flush=True)
+    return res
+
+
 ROUTE_HEIGHTS = (512, 1024, 2048, 3024, 4032, 6048)
 
 
@@ -305,7 +384,7 @@ def bench_warp(iters: int, device: torch.device, seed: int = 0, bsz: int = WARP_
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Microbenchmarks of the PyTorch port's quad sub-stages and K1")
-    ap.add_argument("--which", choices=["warp", "quad", "route", "all"], default="all")
+    ap.add_argument("--which", choices=["warp", "quad", "mask", "route", "all"], default="all")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu (quad only)")
     a = ap.parse_args(argv)
@@ -315,6 +394,8 @@ def main(argv: list[str] | None = None) -> int:
         out.update(bench_warp(a.iters, dev))
     if a.which in ("quad", "all"):
         out.update(bench_quad(a.iters, dev))
+    if a.which in ("mask", "all"):
+        out.update(bench_mask(a.iters, dev))
     if a.which in ("route", "all"):
         out.update(bench_route(dev))
     print(json.dumps(out), flush=True)

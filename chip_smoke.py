@@ -20,11 +20,18 @@ Phases (any failure exits non-zero without the final result line):
    ``--seed``; each kernel's launch count is zeroed just before and read
    just after, and must have risen (K1 2 a pipeline call at 512², pass 1
    and pass 2, ``bn_act`` once a BatchNorm layer of the UNet and twice of
-   the ResNet18, the quadrangle's decimation once);
-3. plain path: the same batch with each kernel (K1's entries, ``bn_act``
-   and the decimation) swapped for its plain PyTorch version must give the
-   same ``found`` flags, FENs and boards;
-4. kernels vs plain: the quadrangle's decimation (``csrc/quad.cu``)
+   the ResNet18, the quadrangle's decimation once, the threshold mask
+   once a non-lite call and never a lite one); the mask is the host
+   formula on the copied-back logits, bit for bit;
+3. plain path: the same batch with each kernel (K1's entries, ``bn_act``,
+   the decimation and the threshold mask) swapped for its plain PyTorch
+   version must give the same ``found`` flags, FENs and boards, and the
+   host formula's mask;
+4. kernels vs plain: the threshold mask (``csrc/mask.cu``) against its
+   plain version bit for bit (mask, band count, the set of listed pixels)
+   on the logits the main path gave it at batch 8 and 128 and on seeded
+   logits about the band, one launch a call, timed at batch 128 beside its
+   bytes floor and its plain version; the quadrangle's decimation (``csrc/quad.cu``)
    against its plain version bit for bit on the polygons the main path
    gave it at batch 8 and 128 and on seeded tie-heavy polygons, timed at
    batch 128 beside its plain version; ``bn_act`` against its plain version bit for bit at
@@ -134,7 +141,8 @@ Phases (any failure exits non-zero without the final result line):
    route sweep, both routes at B=1 heights 512–6048 and at B=128 512²) and ``mfu_accounting`` (on
    the times those printed); each prints its JSON line(s) with its keys
    and the card's name and power limit, the bench's last FENs equal
-   ``process_batch``'s, the sweep's are equal across chunks, and K1 runs
+   ``process_batch``'s, the sweep's are equal across chunks, the microbenchmark's
+   mask kernel equals its plain version at both batches, and K1 runs
    inside the bench, the stages, the trainers and the microbenchmark;
 20. memory and the last entry points, after phase 19's bench streams in
    this process: ``run_device`` at B=1024 (the JAX package's batch) with
@@ -187,8 +195,9 @@ share and top ops over 3 train steps of each trainer.
 
 Output: a ``{"kernels": [...]}`` line (K1's three kernels: ``warp_pass1``
 and ``warp_pass2`` timed on the main path and counted on it and on phase
-22's, ``warp_fused`` on phase 17's photos; ``bn_act``; and ``quad_decimate``,
-counted on the main path and phase 22's), the ``nvidia-smi`` name/power-limit
+22's, ``warp_fused`` on phase 17's photos; ``bn_act``; ``quad_decimate``,
+counted on the main path and phase 22's; and ``mask_threshold``, counted on
+the main path), the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Needs no network.
 """
 
@@ -251,19 +260,20 @@ def capture_k1(k1, fn, seen: set | None = None):
 
 def with_plain_k1(k1, fn):
     """Run ``fn`` with every kernel swapped for its plain PyTorch version:
-    both K1 entries, ``bn_act`` where the models call it, and the
-    quadrangle's decimation."""
+    both K1 entries, ``bn_act`` where the models call it, the quadrangle's
+    decimation and the threshold mask."""
     from chessvision_tpu_torch.models import layers
     from chessvision_tpu_torch.ops import bn_act as bnk
+    from chessvision_tpu_torch.ops import mask as maskk
     from chessvision_tpu_torch.ops import quad as quadk
 
-    saved = (k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad)
+    saved = (k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad, maskk.binary_mask)
     k1.warp_twopass, k1.hat_resample, layers.bn_act = k1.warp_twopass_plain, k1.hat_resample_plain, bnk.bn_act_plain
-    quadk.decimate_to_quad = quadk.decimate_to_quad_plain
+    quadk.decimate_to_quad, maskk.binary_mask = quadk.decimate_to_quad_plain, maskk.binary_mask_plain
     try:
         return fn()
     finally:
-        k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad = saved
+        k1.warp_twopass, k1.hat_resample, layers.bn_act, quadk.decimate_to_quad, maskk.binary_mask = saved
 
 
 def max_err(got, want) -> float:
@@ -495,6 +505,71 @@ def time_quad(quadk, points) -> dict:
     io_bytes = b * k * 2 * 4 + b * 4 * 2 * 4
     return {"shape": [b, k, 2], "steps": k - 4, "ms": event_ms(lambda: quadk.decimate_to_quad(points), iters=50),
             "plain_ms": event_ms(lambda: quadk.decimate_to_quad_plain(points), iters=5), "bytes": io_bytes,
+            "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def capture_mask(maskk, fn):
+    """Run ``fn`` with the threshold mask's split recording the logits and
+    band edges it is given: returns (fn's result, the recorded
+    (logits, lo, hi))."""
+    real = maskk.binary_mask
+    calls: list = []
+
+    def recording(logits, lo, hi):
+        calls.append((logits, lo, hi))
+        return real(logits, lo, hi)
+
+    maskk.binary_mask = recording
+    try:
+        result = fn()
+    finally:
+        maskk.binary_mask = real
+    return result, calls
+
+
+def check_mask(maskk, logits, lo: float, hi: float, where: str) -> int:
+    """The mask kernel against its plain version on one batch of logits,
+    one launch: fails unless every bit of the mask and the band's count are
+    equal, and the listed pixels are the plain version's set (the kernel
+    lists them as they arrive; past the list's length, distinct pixels of
+    the band).  Returns the band's count."""
+    import torch
+
+    launches = maskk.launches
+    got_mask, got_band = maskk.binary_mask(logits, lo, hi)
+    want_mask, want_band = maskk.binary_mask_plain(logits, lo, hi)
+    torch.cuda.synchronize()
+    n = int(want_band[0])
+    got = sorted(got_band[1 : 1 + min(int(got_band[0]), maskk.BAND_LIST)].tolist())
+    if n <= maskk.BAND_LIST:
+        listed_ok = got == want_band[1 : 1 + n].tolist()
+    else:
+        inside = ((logits > lo) & (logits <= hi)).flatten()
+        listed_ok = len(set(got)) == maskk.BAND_LIST and bool(inside[got].all())
+    if not (torch.equal(got_mask, want_mask) and int(got_band[0]) == n and listed_ok):
+        fail(f"mask threshold kernel differs from its plain version on {where} {tuple(logits.shape)}: mask equal "
+             f"{torch.equal(got_mask, want_mask)}, count {int(got_band[0])} against {n}, listed set equal {listed_ok}")
+    if maskk.launches != launches + (logits.numel() > 0):
+        fail(f"mask threshold kernel: {maskk.launches - launches} launches on {where}, expected one")
+    return n
+
+
+def time_mask(maskk, logits, lo: float, hi: float) -> dict:
+    """Device ms of a call of the mask kernel (the count's zeroing and the
+    kernel) on one batch of logits, by CUDA events with the calls queued
+    ahead (``microbench.kernel_ms``), with the L2 cache flushed before each
+    call (``ms``) and back to back (``warm_ms``: 33.5 MB of logits at B=128
+    fit the 50 MB L2), beside its plain version and its bytes floor (4 B
+    read and 1 written a pixel at the data sheet's memory rate)."""
+    from chessvision_tpu_torch.tools.microbench import event_ms, kernel_ms
+
+    def call():
+        return maskk.binary_mask(logits, lo, hi)
+
+    io_bytes = logits.numel() * 5
+    return {"shape": list(logits.shape), "ms": kernel_ms(call, 20, flush_bytes=256 << 20),
+            "warm_ms": kernel_ms(call, 20),
+            "plain_ms": event_ms(lambda: maskk.binary_mask_plain(logits, lo, hi), iters=5), "bytes": io_bytes,
             "bound_ms": io_bytes / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2991,7 +3066,7 @@ SWEEP_KEYS = ("batch", "chunk", "refine", "compile_plus_first_s", "boards_per_se
               "fens_sha256", "peak_memory_gb", "backend", "device", "power_limit_w")
 MICRO_KEYS = ("warp_twopass_ms", "warp_twopass_plain_ms", "grid_sample_twice_ms", "warp_max_abs_err",
               "warp_bound_ms", "smooth_9x9_2d", "smooth_9x9_sep", "flood_halfres", "support_decimate",
-              "route_sweep", "route_rule", "backend", "device", "power_limit_w")
+              "mask_b1", "mask_b128", "route_sweep", "route_rule", "backend", "device", "power_limit_w")
 
 
 def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
@@ -3073,6 +3148,9 @@ def phase_measure(k1, cv, card: str) -> tuple[int, dict]:
     (res["microbench"],) = call("microbench", microbench.main, ["--which", "all"], 1, MICRO_KEYS)
     if res["microbench"]["warp_max_abs_err"] != 0.0:
         fail(f"measure: microbench's K1 differs from its plain version by {res['microbench']['warp_max_abs_err']}")
+    unequal = [k for k in ("mask_b1", "mask_b128") if not res["microbench"][k]["equal"]]
+    if unequal:
+        fail(f"measure: microbench's mask kernel differs from its plain version at {unequal}")
     sweep = res["microbench"]["route_sweep"]
     log(f"[measure] K1 route sweep ({res['microbench']['route_rule']}; ms, warm / cold): " + "; ".join(
         f"{r['shape'][:3]} fused {r['fused_ms']:.4f} / {r['fused_cold_ms']:.4f}, two-pass {r['twopass_ms']:.4f} / "
@@ -3788,6 +3866,7 @@ def main() -> int:
     from chessvision_tpu_torch.models.layers import BatchNorm2d
     from chessvision_tpu_torch.ops import bn_act as bnk
     from chessvision_tpu_torch.ops import hat_resample as k1
+    from chessvision_tpu_torch.ops import mask as maskk
     from chessvision_tpu_torch.ops import quad as quadk
     from chessvision_tpu_torch.ops.warp import get_perspective_transform, invert_homography
     from chessvision_tpu_torch.synthetic import board_frames, limit_chroma
@@ -3882,12 +3961,14 @@ def main() -> int:
     k1.zero_launches()
     bnk.launches = 0
     quadk.launches = 0
+    maskk.launches = 0
     single = cv.process_image(frames8[0])
-    ((res8, calls8), bn_calls8), quad_calls8 = capture_quad(
-        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8))))
+    (((res8, calls8), bn_calls8), quad_calls8), mask_calls8 = capture_mask(maskk, lambda: capture_quad(
+        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames8)))))
     torch.cuda.synchronize()
     launches = k1.launches
     quad_main = quadk.launches
+    mask_main = maskk.launches
     k1_main = dict(k1.kernel_launches)  # by kernel, over the main path's calls (phases 2 and 4)
     bn_by_path = {"main": bnk.launches}
     # bn_act once a BatchNorm layer of the UNet, twice of the ResNet18 (the two arbitrate passes)
@@ -3910,6 +3991,11 @@ def main() -> int:
     log(f"[main] quad decimation launches over process_image + process_batch: {quad_main}")
     if quad_main != 2 or len(quad_calls8) != 1:
         raise SystemExit(f"FAIL: expected 2 quad decimation launches (one a pipeline call), got {quad_main}")
+    log(f"[main] threshold mask launches over process_image + process_batch: {mask_main}")
+    if mask_main != 2 or len(mask_calls8) != 1:
+        raise SystemExit(f"FAIL: expected 2 threshold mask launches (one a non-lite call), got {mask_main}")
+    if not np.array_equal(res8.binary_mask, maskk.formula(res8.logits, 0.5)):
+        raise SystemExit("FAIL: process_batch's mask is not the host formula on its logits")
     if not (res8.probabilities.shape == (8, 64, 13) and np.isfinite(res8.probabilities).all()):
         raise SystemExit("FAIL: probabilities not finite (8, 64, 13)")
     if res8.board_image.shape != (8, 512, 512) or res8.logits.shape != (8, 256, 256):
@@ -3924,6 +4010,9 @@ def main() -> int:
     lite = engine.process_batch(frames8, lite=True)
     if lite.fens != res8.fens:
         raise SystemExit("FAIL: lite FENs differ from full FENs")
+    torch.cuda.synchronize()
+    if maskk.launches != mask_main:
+        raise SystemExit(f"FAIL: a lite call launched the threshold mask ({maskk.launches - mask_main} launches)")
 
     # -- 3. the same batch through the plain versions of K1 and bn_act ------------------------
     res_plain = with_plain_k1(k1, lambda: engine.process_batch(frames8))
@@ -3934,6 +4023,8 @@ def main() -> int:
         f"prob max diff={prob_diff}")
     if not ((res_plain.board_found == res8.board_found).all() and res_plain.fens == res8.fens):
         raise SystemExit("FAIL: plain-resample path gives other found flags or FENs")
+    if not np.array_equal(res_plain.binary_mask, maskk.formula(res_plain.logits, 0.5)):
+        raise SystemExit("FAIL: the plain path's mask is not the host formula on its logits")
     # tolerance: boards within 1 gray level on ≤ 0.1% of pixels (the kernel
     # is expected bit-exact, which gives 0)
     if board_diff.max() > 1 or np.mean(board_diff > 0) > 1e-3:
@@ -3962,18 +4053,22 @@ def main() -> int:
     k1.zero_launches()
     bnk.launches = 0
     quadk.launches = 0
-    ((res128, calls128), bn_calls128), quad_calls128 = capture_quad(
-        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128))))
+    maskk.launches = 0
+    (((res128, calls128), bn_calls128), quad_calls128), mask_calls128 = capture_mask(maskk, lambda: capture_quad(
+        quadk, lambda: capture_bn(lambda: capture_k1(k1, lambda: engine.process_batch(frames128)))))
     torch.cuda.synchronize()
     launches128 = k1.launches
     k1_main = {k: n + k1.kernel_launches[k] for k, n in k1_main.items()}
     bn_by_path["main"] += bnk.launches
     quad_main += quadk.launches
+    mask_main += maskk.launches
     log(f"[main] K1 launches over process_batch B={bsz}: {launches128}; bn_act {bnk.launches}; "
-        f"quad decimation {quadk.launches}")
-    if launches128 != 2 or bnk.launches != n_bn or quadk.launches != 1:
-        raise SystemExit(f"FAIL: expected 2 K1, {n_bn} bn_act and 1 quad decimation launches at B={bsz}, got "
-                         f"{launches128}, {bnk.launches}, {quadk.launches}")
+        f"quad decimation {quadk.launches}; threshold mask {maskk.launches}")
+    if launches128 != 2 or bnk.launches != n_bn or quadk.launches != 1 or maskk.launches != 1:
+        raise SystemExit(f"FAIL: expected 2 K1, {n_bn} bn_act, 1 quad decimation and 1 threshold mask launches at "
+                         f"B={bsz}, got {launches128}, {bnk.launches}, {quadk.launches}, {maskk.launches}")
+    if not np.array_equal(res128.binary_mask, maskk.formula(res128.logits, 0.5)):
+        raise SystemExit(f"FAIL: process_batch's mask at B={bsz} is not the host formula on its logits")
     warp128 = calls128["warp_twopass"][0]
     errs[f"B={bsz}"] = check_k1(k1, *warp128)
     log(f"[k1] max |kernel - plain| by case and entry: {json.dumps(errs)}")
@@ -4014,6 +4109,22 @@ def main() -> int:
     log(f"[quad] B={bsz} decimation {quad_times['ms']:.4f} ms a call ({quad_times['steps']} steps), plain "
         f"{quad_times['plain_ms']:.3f} ms, bytes floor {quad_times['bound_ms']:.6f} ms; {card}")
     del quad_calls8, quad_calls128, quad_cases
+
+    # the threshold mask against its plain version, bit for bit: the logits the main path gave it at B=8 and
+    # B=128, then seeded logits about the band of t=0.5 (some in it, more than the list holds; a tail after
+    # the last float4)
+    gm = torch.Generator(device="cuda").manual_seed(args.seed)
+    lo5, hi5 = maskk.band(0.5)
+    mask_cases = {"B=8": mask_calls8[0], f"B={bsz}": mask_calls128[0],
+                  "about the band": (torch.randn((2, 256, 256), generator=gm, device="cuda") * 3e-5, lo5, hi5),
+                  "37x41 boards": (torch.randn((3, 37, 41), generator=gm, device="cuda") * 1e-4, lo5, hi5)}
+    mask_band = {name: check_mask(maskk, *case, name) for name, case in mask_cases.items()}
+    mask_times = time_mask(maskk, *mask_calls128[0])
+    log(f"[mask] equal to its plain version in every bit (mask, count, listed set) on "
+        f"{json.dumps({k: list(v[0].shape) for k, v in mask_cases.items()})}; band pixels {json.dumps(mask_band)}")
+    log(f"[mask] B={bsz} kernel {mask_times['ms']:.4f} ms a call (L2 flushed; {mask_times['warm_ms']:.4f} back to "
+        f"back), plain {mask_times['plain_ms']:.3f} ms, bytes floor {mask_times['bound_ms']:.4f} ms; {card}")
+    del mask_calls8, mask_calls128, mask_cases
 
     # bn_act against its plain version, bit for bit: every call shape of the bf16 models at B=8 and
     # B=128 and of the float32 models at B=8, then the seeded edge cases
@@ -4234,6 +4345,23 @@ def main() -> int:
         "bound_ms": quad_times["bound_ms"],
         "bound_by": "bytes (the kernel is bound by its dependent steps)",
         "shape": quad_times["shape"],
+    })
+    kernels.append({
+        "name": "mask_threshold",
+        "route": "cuda",
+        "source": "chessvision_tpu_torch/csrc/mask.cu",
+        "replaces": "none: no TPU kernel; the JAX package thresholds the logits with numpy on the host "
+                    "(chessvision_tpu/engine.py, Engine.process_batch)",
+        "launches": mask_main,
+        "launches_by_path": {"main": mask_main},
+        "max_abs_err": 0.0,
+        "ms": mask_times["ms"],
+        "warm_ms": mask_times["warm_ms"],
+        "plain_ms": mask_times["plain_ms"],
+        "bound_ms": mask_times["bound_ms"],
+        "bound_by": "bytes",
+        "shape": mask_times["shape"],
+        "band_pixels": mask_band,
     })
     log(f"[memory] summary {json.dumps(memory)}")
     log(f"[testset] summary {json.dumps(testset)}")

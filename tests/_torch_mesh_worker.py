@@ -137,6 +137,8 @@ def engine_record(mesh: mesh_lib.Mesh | None, yolo_state_dict: dict) -> dict[str
         "engine/probabilities": r.probabilities,
         "engine/quadrangle": r.quadrangle,
         "engine/board_image": r.board_image,
+        "engine/logits": r.logits,
+        "engine/binary_mask": r.binary_mask,
     }
 
 

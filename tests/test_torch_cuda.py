@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from chessvision_tpu_torch.ops import hat_resample, quad, warp
+from chessvision_tpu_torch.ops import mask as mask_ops
 # by its own name (pytest puts tests/ on the path): the card's machine has another package named ``tests``
+from _mask_cases import (PLANTED_IN_BAND, THRESHOLDS, FlatClassifier, PlantedExtractor, edge_logits, listed,
+                         old_formula)
 from _quad_cases import POLYGON_KINDS, mask_support_points, masks, polygons
 
 pytestmark = pytest.mark.cuda
@@ -1128,6 +1131,110 @@ def test_quad_kernel_on_the_second_card_leaves_nothing_on_the_first() -> None:
     assert out.returncode == 0, out.stderr[-3000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec == {"cards": [1], "device": "cuda:1", "launches": 1, "equal": True}, rec
+
+
+# -- the threshold mask's kernel (csrc/mask.cu) -----------------------------------------------
+
+
+def _mask_kernel_equals_plain(logits: torch.Tensor, lo: float, hi: float) -> int:
+    """The kernel's mask on the card equals the plain version's in every
+    bit, and its band the same count and listed pixels (listed in the order
+    they arrive); one launch, none where there is no logit; returns the
+    count."""
+    launches = mask_ops.launches
+    got_mask, got_band = mask_ops.binary_mask(logits, lo, hi)
+    torch.cuda.synchronize()
+    assert mask_ops.launches == launches + (logits.numel() > 0)
+    want_mask, want_band = mask_ops.binary_mask_plain(logits, lo, hi)
+    assert got_mask.is_cuda and got_mask.dtype == torch.uint8 and got_mask.shape == logits.shape
+    assert got_band.dtype == torch.int32 and got_band.shape == (1 + mask_ops.BAND_LIST,)
+    assert torch.equal(got_mask, want_mask) and int(got_band[0]) == int(want_band[0])
+    if int(want_band[0]) <= mask_ops.BAND_LIST:
+        assert listed(got_band) == listed(want_band)
+    else:  # the list holds the first pixels to arrive: distinct band pixels
+        inside = ((logits > lo) & (logits <= hi)).flatten()
+        got = listed(got_band)
+        assert len(set(got)) == mask_ops.BAND_LIST and bool(inside[got].all())
+    return int(got_band[0])
+
+
+@pytest.mark.parametrize("threshold", THRESHOLDS)
+def test_mask_kernel_equals_plain_bit_for_bit(threshold) -> None:
+    """Every float32 within 2^16 ulps of each band edge and of c, the
+    specials, and seeded logits, at B = 0, 1, 2 and 128."""
+    _need_card()
+    lo, hi = mask_ops.band(threshold)
+    edge = torch.from_numpy(edge_logits(threshold)).cuda()
+    # at t = 0.5, 0.7 and 0.99 more band pixels than the list holds
+    assert _mask_kernel_equals_plain(edge, lo, hi) > 0
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    seeded = torch.randn((128, 256, 256), generator=gen, device="cuda") * 8
+    seeded.view(-1)[: edge.numel()] = edge.view(-1)
+    for b in (0, 1, 2, 128):
+        _mask_kernel_equals_plain(seeded[:b], lo, hi)
+
+
+def test_mask_kernel_reads_odd_strided_and_unaligned_logits() -> None:
+    """Boards of 37 × 41 values (the total not a multiple of 4: a tail
+    after the last float4), a band that overflows the list, a strided view
+    and one at an odd float offset."""
+    _need_card()
+    lo, hi = mask_ops.band(0.5)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((3, 37, 41), generator=gen, device="cuda") * 1e-4
+    assert _mask_kernel_equals_plain(x, lo, hi) == int(((x > lo) & (x <= hi)).sum())
+    assert _mask_kernel_equals_plain(x * 1e-3, lo, hi) == x.numel() > mask_ops.BAND_LIST
+    y = torch.randn((4, 256, 512), generator=gen, device="cuda") * 1e-4
+    _mask_kernel_equals_plain(y[:, :, ::2], lo, hi)
+    flat = torch.randn(2 * 65536 + 1, generator=gen, device="cuda") * 1e-4
+    _mask_kernel_equals_plain(flat[1:].view(2, 256, 256), lo, hi)
+
+
+def test_mask_kernel_refuses_other_dtypes() -> None:
+    _need_card()
+    with pytest.raises(TypeError):
+        mask_ops.binary_mask(torch.zeros((2, 8, 8), device="cuda", dtype=torch.bfloat16), -1.0, 1.0)
+
+
+def test_process_batch_mask_on_the_card_is_the_host_formula() -> None:
+    """Seeded frames through the committed models: the mask is the host
+    formula on the copied-back logits at several thresholds; one kernel
+    launch a non-lite ``process_batch``, none for ``lite`` or a stream."""
+    _need_card()
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    engine = ChessVision(device="cuda").engine
+    frames = board_frames(0, 8)[0]
+    for t in (0.5, 0.3, 0.9):
+        launches = mask_ops.launches
+        res = engine.process_batch(frames, threshold=t)
+        assert mask_ops.launches == launches + 1
+        assert res.binary_mask.dtype == np.uint8 and res.binary_mask.shape == (8, 256, 256)
+        assert np.array_equal(res.binary_mask, old_formula(res.logits, t))
+    launches = mask_ops.launches
+    engine.process_batch(frames, lite=True)
+    list(engine.run_stream([frames, frames], kind="raw"))
+    torch.cuda.synchronize()
+    assert mask_ops.launches == launches
+
+
+def test_process_batch_settles_planted_band_pixels_on_the_card() -> None:
+    _need_card()
+    from chessvision_tpu_torch import engine as engine_mod
+    from chessvision_tpu_torch.engine import Engine
+
+    engine = Engine(PlantedExtractor(), FlatClassifier(), refine_grid="off", device="cuda")
+    logits = engine._extractor.logits
+    assert int(engine_mod._device_mask(logits, 0.5)["band"][0]) == PLANTED_IN_BAND
+    frames = np.random.default_rng(5).integers(0, 256, (2, 256, 256, 3), np.uint8)
+    before, launches = engine_mod.mask_band_pixels, mask_ops.launches
+    res = engine.process_batch(frames, threshold=0.5)
+    assert mask_ops.launches == launches + 1
+    assert engine_mod.mask_band_pixels == before + PLANTED_IN_BAND
+    assert np.array_equal(res.logits, logits.cpu().numpy())
+    assert np.array_equal(res.binary_mask, old_formula(res.logits, 0.5))
 
 
 # -- YOLO11-seg: bn_act's SiLU epilogues and the extractor on the card ------------------------

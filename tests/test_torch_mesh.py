@@ -301,6 +301,20 @@ def test_mesh_engine_equals_one_process_and_jax(two_ranks) -> None:
     np.testing.assert_allclose(got["engine/probabilities"], np.asarray(want.probabilities), atol=1e-3)
 
 
+def test_mesh_engine_mask_is_the_host_formula_on_every_rank(two_ranks) -> None:
+    """A mesh that spans processes hands every rank the gathered logits on
+    the host, and the host splits the mask there: the JAX package's host
+    formula on those logits, bit for bit, and the one-process engine's
+    mask (made on its device and settled on the host)."""
+    ranks, one, _ = two_ranks
+    with np.errstate(over="ignore"):
+        want = np.where(1.0 / (1.0 + np.exp(-one["engine/logits"], dtype=np.float32)) > 0.5, np.uint8(255), np.uint8(0))
+    assert np.array_equal(one["engine/binary_mask"], want)
+    for got in ranks:
+        assert np.array_equal(got["engine/logits"], one["engine/logits"])
+        assert got["engine/binary_mask"].dtype == np.uint8 and np.array_equal(got["engine/binary_mask"], want)
+
+
 def test_mesh_raw_stream_runs_the_whole_batch_on_every_rank(two_ranks) -> None:
     """``run_stream(kind="raw")`` on a two-process mesh yields, on each
     rank, the tensors of a mesh-free engine's stream over the same batch;
