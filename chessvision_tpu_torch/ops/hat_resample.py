@@ -29,13 +29,21 @@ the same function and the oracle.  The kernels are hand-written CUDA,
   on the main path.  On CUDA tensors the kernel reads ``src`` in place
   through its batch, row and element strides (a transposed view needs no
   copy) or the call raises.
+- ``warp_fused_plain``: what ``warp_twopass`` computes on CPU tensors.
+  Each canvas pixel is gathered from its four taps by K1's tap rule, the
+  rule both card routes compute: on finite inputs the JAX oracle's
+  floats, and 0 where no tap lies inside (a non-finite position) where
+  the oracle gives NaN.  A tap outside the frame reads index 0 at weight
+  0, so a non-finite pixel in row 0 or column 0 reaches more outputs here
+  than on the card, which selects 0 for such a tap.
 - ``warp_twopass_plain``, ``twopass_positions``, ``hat_resample_plain``:
-  the plain PyTorch versions (positions as tensors; the broadcast
-  multiply-reduce of the JAX oracle).  Only CPU tensors take them in the
-  wrappers; on the card they are what the kernels are compared with.
-  ``warp_fused_plain`` is the fused route's order of operations in plain
-  PyTorch, held against ``warp_twopass_plain`` on the CPU; no wrapper
-  takes it.
+  the plain versions of the two-pass kernels and of ``hat_resample``, and
+  the dense form the JAX package computes (positions as tensors; the
+  broadcast multiply-reduce of the TPU kernel's band contraction).
+  ``hat_resample`` takes ``hat_resample_plain`` on CPU tensors.  On the
+  card the kernels are compared with them; on the CPU the tests hold them
+  against the JAX package (``tests/test_torch_warp_fused.py``,
+  ``tests/test_torch_warp_route.py``).
 - ``launches``: kernel launches so far (any entry), to show that a run
   went through the kernels; ``kernel_launches`` the same by kernel.  A
   call whose result has no element reaches the launcher, which launches
@@ -144,9 +152,18 @@ def warp_fused_plain(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: 
     source row r at hx(u, r) for each, then the hat sum of those two at vy;
     positions by the elementwise operations of ``twopass_positions``, each
     tap weighted ``max(0, 1 − |p − j|)`` and zero outside the frame.  Equal
-    to ``warp_twopass_plain``: at most two terms of each of its sums are
-    nonzero, and these are they."""
+    to ``warp_twopass_plain`` on finite inputs: at most two terms of each of
+    its sums are nonzero, and these are they."""
     b, src_h, src_w = imgs.shape
+    # a board's gather peaks at ~25 floats a canvas pixel (~260 MiB for 8
+    # boards into 576²): split the batch so that a block's peak stays
+    # within _PLAIN_ELEMS floats
+    per = max(1, _PLAIN_ELEMS // (25 * out_h * out_w))
+    if b > per:
+        out = torch.empty((b, out_h, out_w), dtype=torch.float32, device=imgs.device)
+        for b0 in range(0, b, per):
+            out[b0 : b0 + per] = warp_fused_plain(imgs[b0 : b0 + per], minv[b0 : b0 + per], out_h, out_w)
+        return out
     dev = imgs.device
     vs = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None].expand(out_h, out_w)
     us = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :].expand(out_h, out_w)
@@ -320,13 +337,15 @@ def warp_twopass(imgs: torch.Tensor, minv: torch.Tensor, out_h: int, out_w: int)
     """K1 as the main path calls it: (B, H, W) float32 images warped by
     (B, 3, 3) inverse homographies to (B, out_h, out_w).  CUDA tensors go
     through the kernels of the route ``warp_plan`` names (contiguous
-    result) or the call raises; CPU tensors take the plain version; any
-    other device raises."""
+    result) or the call raises; CPU tensors take ``warp_fused_plain`` (in
+    ``warp_twopass_plain``'s strides); any other device raises."""
     _check_warp(imgs, minv)
     if imgs.is_cuda:
         if warp_plan(*imgs.shape, out_h, out_w) == "fused":
             return warp_fused(imgs, minv, out_h, out_w)
         return warp_pass2(warp_pass1(imgs, minv, out_w), minv, out_h)
     if imgs.device.type == "cpu":
-        return warp_twopass_plain(imgs, minv, out_h, out_w)
+        # warp_twopass_plain's strides, a view of (B, out_w, out_h): torch 2.13.0+cpu's oneDNN
+        # backward crashes on the contiguous layout (test_a_rank_augments_only_its_rows[resnet18-*])
+        return warp_fused_plain(imgs, minv, out_h, out_w).transpose(1, 2).contiguous().transpose(1, 2)
     raise ValueError(f"warp_twopass: unsupported device {imgs.device}")

@@ -6,7 +6,9 @@ Counterpart of ``chessvision_tpu/ops/warp.py``, batched over boards:
   closed-form adjugate algebra (no linear solve);
 - ``warp_perspective`` with ``method="twopass"`` (the main path: the
   Catmull–Smith two-pass warp, which is kernel K1's ``warp_twopass`` in
-  ``ops/hat_resample.py``; its plain version ``warp_twopass_plain`` and
+  ``ops/hat_resample.py``: on the CPU the tap gather ``warp_fused_plain``,
+  K1's tap rule as both card routes compute it; the dense plain version
+  of the two-pass kernels, ``warp_twopass_plain``, and
   ``twopass_positions`` live beside the kernel's wrapper and are
   re-exported here) or ``method="bilinear"`` (one-shot bilinear gather,
   cv2.warpPerspective arithmetic).

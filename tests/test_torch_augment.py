@@ -1,4 +1,5 @@
-"""The port's training augmentations, on the CPU (K1's plain warp).
+"""The port's training augmentations, on the CPU (K1's CPU path, the tap
+gather ``warp_fused_plain``).
 
 - the contracts of tests/test_augment.py: shapes, ranges, determinism at a
   key, identity matrices are no-ops (exactly), rotation moves content,
@@ -7,7 +8,7 @@
 - parity at given draws: ``_rotation_matrices``, ``_affine_matrices``,
   ``_warp_nhwc``, the blur, the color jitter and the illumination gradient
   against the JAX helpers fed the same drawn values, 1e-5 (images at 64²
-  or smaller: the plain warp's broadcast is (N, H, J, U));
+  or smaller: the JAX helpers' dense warp broadcasts (N, H, J, U));
 - the draws: integer segmentation angles, and turning one flag on leaves
   every other augmentation's draws unchanged (JAX's PRNG is not
   reproduced; the port draws each quantity from its own generator).

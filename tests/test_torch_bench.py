@@ -2,10 +2,10 @@
 ``chessvision_tpu_torch/tools/bench.py``) on the CPU.
 
 - ``bench.run`` (what ``main`` calls) at B=2 on an engine with the stub
-  models of tests/test_torch_engine.py and 256² frames (the CPU's plain
-  warp costs seconds a 512² board): every measured key, and the last
-  streamed batch's FENs and found flags equal ``process_batch``'s on the
-  same frames exactly;
+  models of tests/test_torch_engine.py and 256² frames (a CPU
+  ``process_batch`` costs ~0.13 s a 512² board on one thread): every
+  measured key, and the last streamed batch's FENs and found flags equal
+  ``process_batch``'s on the same frames exactly;
 - ``main --quick --device cpu`` with the measurement stood in for: one
   JSON line with bench.py's keys, ``backend`` "cpu", the CPU's card
   fields, B=4, iters 2, the compute probe at the e2e batch;

@@ -275,7 +275,7 @@ STREAM_KINDS = {"raw": lambda f: f, "packed": pack_inputs, "yuv": pack_inputs_yu
 
 @pytest.fixture(scope="module")
 def stream_case() -> tuple[Engine, list[np.ndarray]]:
-    """256² frames (block factor 1) keep the CPU's plain warp short."""
+    """256² frames (block factor 1) keep each batch short on the CPU."""
     return _stub_engine("yoloseg8"), [_smooth_frames(20 + i, 1, 256) for i in range(3)]
 
 

@@ -19,6 +19,7 @@ from chessvision_tpu_torch.ops import mask as mask_ops
 from _mask_cases import (PLANTED_IN_BAND, THRESHOLDS, FlatClassifier, PlantedExtractor, edge_logits, listed,
                          old_formula)
 from _quad_cases import POLYGON_KINDS, mask_support_points, masks, polygons
+from _warp_cases import CANVAS, NONFINITE, nonfinite_case
 
 pytestmark = pytest.mark.cuda
 
@@ -257,6 +258,22 @@ def test_fused_kernel_at_integer_positions_is_exact() -> None:
     got = hat_resample.warp_twopass(imgs, minv, 576, 576)
     torch.testing.assert_close(got, imgs[:, 0:1152:2, 0:1152:2], atol=0, rtol=0)
     torch.testing.assert_close(got, hat_resample.warp_twopass_plain(imgs, minv, 576, 576), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", NONFINITE)
+def test_both_routes_equal_the_tap_gather_on_nonfinite_inputs(case) -> None:
+    """The inputs of the CPU's non-finite test (``tests/_warp_cases.py``):
+    both routes give the tap gather's floats, 0 where no tap lies inside
+    and NaN or inf only where an output reads the bad pixel."""
+    _need_card()
+    imgs, minv = (t.cuda() for t in nonfinite_case(case))
+    want = hat_resample.warp_fused_plain(imgs, minv, CANVAS, CANVAS)
+    fused = hat_resample.warp_fused(imgs, minv, CANVAS, CANVAS)
+    twopass = hat_resample.warp_pass2(hat_resample.warp_pass1(imgs, minv, CANVAS), minv, CANVAS)
+    torch.cuda.synchronize()
+    for got in (fused, twopass):
+        torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+    assert bool(torch.isfinite(want[1]).all()) and float(want[1].max()) > 0
 
 
 def test_fused_route_of_an_empty_batch_launches_nothing() -> None:

@@ -12,8 +12,8 @@ the CPU.
   cv2 and never imports matplotlib unless asked to show them.
 
 The mesh cases run the stub extractor of tests/_torch_mesh_worker.py and
-a seeded YoloCls (width 8); one or two 256² frames a call, since the
-CPU's plain warp costs about a second a board.
+a seeded YoloCls (width 8); one or two 256² frames a call, which keeps
+each rank's CPU pipeline well under a second.
 """
 
 from __future__ import annotations

@@ -209,7 +209,13 @@ def test_builds_started_at_once_write_files_of_their_own(stand_in_build) -> None
     both land."""
     log, _ = stand_in_build(fail=False)
     started: list = []
-    _run(*[lambda: started.append(cuda_build._start_build("k", verbose=False))] * 2)
+    both = threading.Barrier(2)
+
+    def build() -> None:
+        started.append(cuda_build._start_build("k", verbose=False))
+        both.wait(timeout=30)  # alive until the other has started: a finished thread's ident is reused
+
+    _run(build, build)
     assert len({s[1] for s in started}) == 2
     assert all(str(os.getpid()) in s[1].name for s in started)
     errors = []

@@ -2,12 +2,17 @@
 
 The same numpy inputs, made from a seed, go through the JAX package's
 ``_warp_batched_twopass`` and the port's ``warp_twopass`` on CPU tensors
-(where the wrapper takes its plain version).  Tolerance: 0 everywhere.
+(where the wrapper takes the tap gather ``warp_fused_plain``).  Tolerance:
+0 everywhere.
 Given the same homography, both frameworks round every ``*``, ``+``,
 ``-`` and ``/`` of the position math to nearest, one operation at a time
 (JAX dispatches this function op by op here), and the hat resample sums
-at most two nonzero terms, so the floats are equal.  The card's kernels
-are held against the same plain version in ``tests/test_torch_cuda.py``.
+at most two nonzero terms, so the floats are equal.  The wrapper equals
+the dense plain version ``warp_twopass_plain`` here, which
+``tests/test_torch_warp_route.py`` holds against JAX at the main path's
+shape and the card's kernels are held against in
+``tests/test_torch_cuda.py``.  On non-finite inputs the wrapper follows
+the card's tap rule, not JAX's dense form.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch
 
 from chessvision_tpu.ops import warp as jwarp
 from chessvision_tpu_torch.ops import hat_resample, warp
+# by its own name, as the card's file imports it
+from _warp_cases import BAD_PIXEL, CANVAS, NONFINITE, nonfinite_case, taps_pixel
 
 _DEST = np.array([[0, 0], [512, 0], [512, 512], [0, 512]], np.float32)
 _SIZES = [(576, 32), (512, 0)]  # (canvas side, margin): the main path's two shapes
@@ -119,16 +126,44 @@ def test_warp_twopass_cpu_equals_jax(names, out_px, margin) -> None:
 
 
 def test_warp_twopass_cpu_is_plain() -> None:
+    """CPU tensors take the tap gather ``warp_fused_plain`` (K1's tap rule,
+    as both card routes compute it) in ``warp_twopass_plain``'s strides; on
+    finite inputs its floats are the dense form's."""
     imgs, ms = _inputs(["rotated_minus_30", "partly_outside"], 32, size=96)
     minv = warp.invert_homography(_t(ms))
     before = hat_resample.launches
     got = hat_resample.warp_twopass(_t(imgs), minv, 80, 72)
     assert hat_resample.launches == before  # no kernel on CPU tensors
     assert got.shape == (2, 80, 72)
+    np.testing.assert_array_equal(got.numpy(), hat_resample.warp_fused_plain(_t(imgs), minv, 80, 72).numpy())
     want = hat_resample.warp_twopass_plain(_t(imgs), minv, 80, 72)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got.stride() == want.stride() == (80 * 72, 1, 80)
     assert warp.warp_twopass_plain is hat_resample.warp_twopass_plain
     assert warp.twopass_positions is hat_resample.twopass_positions
+
+
+@pytest.mark.parametrize("case", NONFINITE)
+def test_warp_twopass_cpu_follows_the_tap_rule_on_nonfinite_inputs(case) -> None:
+    """Where a position or a pixel is not finite, the CPU gives what the
+    card's kernels give: 0 where no tap lies inside the frame (a NaN or
+    infinite position), and non-finite values only at the outputs that
+    read a bad pixel.  The dense form spreads NaN over the whole board,
+    since 0 · inf is NaN.  The batch's second board is untouched."""
+    imgs, minv = nonfinite_case(case)
+    got = hat_resample.warp_twopass(imgs, minv, CANVAS, CANVAS)
+    dense = hat_resample.warp_twopass_plain(imgs, minv, CANVAS, CANVAS)
+    np.testing.assert_array_equal(got[1].numpy(), dense[1].numpy())
+    assert bool(torch.isfinite(got[1]).all()) and float(got[1].max()) > 0
+    if case != "inf_pixel":
+        assert bool((got[0] == 0).all())
+        return
+    hit = taps_pixel(minv, CANVAS, CANVAS, BAD_PIXEL)[0]
+    assert hit.any()
+    np.testing.assert_array_equal(~np.isfinite(got[0].numpy()), hit)
+    clean = imgs.clone()
+    clean[0][BAD_PIXEL] = 0.0
+    np.testing.assert_array_equal(got[0].numpy()[~hit], hat_resample.warp_twopass_plain(clean, minv, CANVAS, CANVAS)[0].numpy()[~hit])
 
 
 def test_warp_twopass_plain_is_two_hat_resamples() -> None:

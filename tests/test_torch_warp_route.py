@@ -10,9 +10,12 @@ the same numpy inputs made from a seed, at tolerance 0: both round every
 operation of the position math to nearest one at a time, and each hat sum
 has at most two nonzero terms, which the fused order sums alike.  Frames
 of 480×640 and 641×479 into a 64² canvas shrink 7.5–10× as camera photos
-into the 576² canvas do, at a size the CPU's plain warp can afford.  The
-fused kernel itself is held against ``warp_twopass_plain`` on the card in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 17.
+into the 576² canvas do, at a size the dense form ``warp_twopass_plain``
+can afford (a 512² frame into the 576² canvas costs ~0.03 s by the tap
+gather that CPU tensors take, 1.4–2.2 s by the dense form); one case
+holds the main path's shape, two 512² frames into the 576² canvas.  The fused kernel itself is held
+against ``warp_twopass_plain`` on the card in ``tests/test_torch_cuda.py``
+and ``chip_smoke.py`` phase 17.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from chessvision_tpu_torch.tools import flops, microbench
 CANVAS, MARGIN = 64, 4
 SIZES = [(480, 640), (641, 479)]
 QUADS = ["photo", "photo_x_by_height", "rotated_plus_30", "rotated_minus_25", "partly_outside"]
+# the main path's shape: two 512² frames into the 576² canvas, margin 32
+MAIN, MAIN_CANVAS, MAIN_MARGIN = (512, 512), 576, 32
+CASES = [(hw, quad) for hw in SIZES for quad in QUADS] + [(MAIN, "main_path")]
 
 
 def _rotated(deg: float, side: float, cx: float, cy: float) -> np.ndarray:
@@ -40,8 +46,15 @@ def _rotated(deg: float, side: float, cx: float, cy: float) -> np.ndarray:
 
 def _inputs(hw: tuple[int, int], quad: str) -> tuple[np.ndarray, np.ndarray]:
     """A seeded gray photo (1, h, w) float32 and the src→dst homography
-    (1, 3, 3) that takes ``quad`` onto the canvas's board."""
+    (1, 3, 3) that takes ``quad`` onto the canvas's board; for
+    ``"main_path"`` two frames (2, 512, 512), their boards' quads onto the
+    576² canvas."""
     h, w = hw
+    if quad == "main_path":
+        frames, quads = photo_frames(h + w, 2, h, w)
+        dest = np.array([[0, 0], [512, 0], [512, 512], [0, 512]], np.float32) + MAIN_MARGIN
+        ms = [np.array(jwarp.get_perspective_transform(jnp.asarray(q, jnp.float32), jnp.asarray(dest))) for q in quads]
+        return frames[..., 1].astype(np.float32), np.stack(ms)
     frames, quads = photo_frames(h + w + QUADS.index(quad), 1, h, w)
     gray = frames[..., 1].astype(np.float32)  # any plane: the warp is per plane
     q = quads[0].astype(np.float64)
@@ -59,17 +72,17 @@ def _inputs(hw: tuple[int, int], quad: str) -> tuple[np.ndarray, np.ndarray]:
     return gray, m[None]
 
 
-@pytest.mark.parametrize("quad", QUADS)
-@pytest.mark.parametrize("hw", SIZES, ids=[f"{h}x{w}" for h, w in SIZES])
+@pytest.mark.parametrize("hw,quad", CASES, ids=[f"{h}x{w}-{quad}" for (h, w), quad in CASES])
 def test_fused_plain_equals_twopass_plain_and_jax(hw, quad) -> None:
     imgs, ms = _inputs(hw, quad)
-    assert hat_resample.warp_plan(1, *hw, CANVAS, CANVAS) == "fused"
-    want = np.asarray(jwarp._warp_batched_twopass(jnp.asarray(imgs), jnp.asarray(ms), CANVAS, CANVAS))
+    out = MAIN_CANVAS if quad == "main_path" else CANVAS
+    assert hat_resample.warp_plan(len(imgs), *hw, out, out) == ("twopass" if quad == "main_path" else "fused")
+    want = np.asarray(jwarp._warp_batched_twopass(jnp.asarray(imgs), jnp.asarray(ms), out, out))
     t_imgs = torch.from_numpy(imgs)
     minv = warp.invert_homography(torch.from_numpy(ms))
-    fused = hat_resample.warp_fused_plain(t_imgs, minv, CANVAS, CANVAS)
-    twopass = hat_resample.warp_twopass_plain(t_imgs, minv, CANVAS, CANVAS)
-    assert fused.shape == twopass.shape == want.shape == (1, CANVAS, CANVAS)
+    fused = hat_resample.warp_fused_plain(t_imgs, minv, out, out)
+    twopass = hat_resample.warp_twopass_plain(t_imgs, minv, out, out)
+    assert fused.shape == twopass.shape == want.shape == (len(imgs), out, out)
     np.testing.assert_array_equal(fused.numpy(), twopass.numpy())  # tolerance 0
     np.testing.assert_array_equal(fused.numpy(), want)
     assert want.max() > 0
@@ -120,13 +133,15 @@ def test_warp_plan_names_the_route(case) -> None:
 
 
 def test_warp_twopass_on_cpu_is_plain_on_either_route() -> None:
-    """CPU tensors take ``warp_twopass_plain`` whatever the route the card
-    would take, and launch nothing."""
+    """CPU tensors take the tap gather ``warp_fused_plain`` whatever the
+    route the card would take, and launch nothing; on these finite inputs
+    its floats are ``warp_twopass_plain``'s."""
     imgs, ms = _inputs((480, 640), "photo")
     minv = warp.invert_homography(torch.from_numpy(ms))
     before, by_kernel = hat_resample.launches, dict(hat_resample.kernel_launches)
     got = hat_resample.warp_twopass(torch.from_numpy(imgs), minv, CANVAS, CANVAS)
     assert hat_resample.launches == before and hat_resample.kernel_launches == by_kernel
+    np.testing.assert_array_equal(got.numpy(), hat_resample.warp_fused_plain(torch.from_numpy(imgs), minv, CANVAS, CANVAS).numpy())
     want = hat_resample.warp_twopass_plain(torch.from_numpy(imgs), minv, CANVAS, CANVAS)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
