@@ -41,6 +41,8 @@ engine replays its ``capturable`` stage as a CUDA graph (``_GraphedExtractor``).
 from __future__ import annotations
 
 import os
+import threading
+import weakref
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
@@ -556,16 +558,111 @@ def validate_labels_batch(
         return all_labels, all_fixes
 
 
+# pinned host memory that the slabs of live copy-back results may hold: a
+# quarter of the host's; past it a call copies through pageable memory
+_PINNED_CEILING = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 4
+# where each output starts in a slab
+_SLAB_ALIGN = 256
+# bytes of CUDA outputs copied back through pinned slabs, and through
+# pageable memory because the live slabs had reached ``_PINNED_CEILING``
+copy_back_pinned_bytes = 0
+copy_back_pageable_bytes = 0
+# pinned bytes (the host allocator's power-of-two blocks) of the slabs alive
+_pinned_live = 0
+_pinned_lock = threading.Lock()
+
+
+def _pin(block: int) -> bool:
+    """Whether a slab of ``block`` pinned bytes fits under the ceiling;
+    if so it counts as live until ``_unpin``."""
+    global _pinned_live
+    with _pinned_lock:
+        if _pinned_live + block > _PINNED_CEILING:
+            return False
+        _pinned_live += block
+        return True
+
+
+def _unpin(block: int) -> None:
+    global _pinned_live
+    with _pinned_lock:
+        _pinned_live -= block
+
+
+def _count_copied(pinned: int, pageable: int) -> None:
+    global copy_back_pinned_bytes, copy_back_pageable_bytes
+    with _pinned_lock:
+        copy_back_pinned_bytes += pinned
+        copy_back_pageable_bytes += pageable
+
+
+def _slab_layout(sizes: dict[str, int]) -> tuple[dict[str, int], int, int]:
+    """Where each output of ``sizes`` bytes starts in a slab, the slab's
+    bytes, and the pinned block the host allocator rounds them up to."""
+    starts, total = {}, 0
+    for k, n in sizes.items():
+        starts[k] = total
+        total += -(-n // _SLAB_ALIGN) * _SLAB_ALIGN
+    return starts, total, 1 << (total - 1).bit_length() if total else 0
+
+
+def _pinned_copies(dev: torch.device, tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """``tensors``, all on the CUDA device ``dev``, as numpy views on one
+    pinned slab: each copied into its aligned slice without blocking, one
+    synchronisation after the last.  The views keep the slab alive, and it
+    counts against ``_PINNED_CEILING`` until the last of them is freed;
+    where it would pass the ceiling, each tensor is copied pageable."""
+    sizes = {k: t.numel() * t.element_size() for k, t in tensors.items()}
+    starts, total, block = _slab_layout(sizes)
+    if not total or not _pin(block):
+        _count_copied(0, sum(sizes.values()))
+        return {k: t.cpu().numpy() for k, t in tensors.items()}
+    try:
+        with torch.cuda.device(dev):
+            slab = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    except BaseException:
+        _unpin(block)
+        raise
+    # every array handed out is a view whose numpy base is ``whole`` (numpy
+    # stops collapsing bases at one of another type, here the tensor that
+    # holds the slab), so ``whole`` lives exactly as long as any of them
+    whole = slab.numpy()
+    weakref.finalize(whole, _unpin, block)
+    host = {}
+    for k, t in tensors.items():
+        dst = slab[starts[k] : starts[k] + sizes[k]].view(t.dtype).view(t.shape)
+        dst.copy_(t.contiguous(), non_blocking=True)
+        host[k] = whole[starts[k] : starts[k] + sizes[k]].view(dst.numpy().dtype).reshape(t.shape)
+    torch.cuda.current_stream(dev).synchronize()
+    _count_copied(sum(sizes.values()), 0)
+    return host
+
+
 def _copy_back(out: dict[str, torch.Tensor], keys: Sequence[str]) -> dict[str, np.ndarray]:
     """The named device outputs as host numpy arrays.  It first waits for
     the device's stream, as the first copy would, so that the wait has a
-    span of its own (``device_wait``)."""
+    span of its own (``device_wait``).
+
+    The outputs of each CUDA device come back through one pinned slab
+    (``_pinned_copies``): the arrays are writable numpy views on pinned
+    host memory for as long as they live, and the slabs alive at once hold
+    at most ``_PINNED_CEILING`` bytes, a quarter of the host's memory, past
+    which a call copies through pageable memory as CPU tensors always do."""
     with profiling.span("copy_back"):
         with profiling.span("device_wait"):
             for dev in {out[k].device for k in keys}:
                 if dev.type == "cuda":
                     torch.cuda.current_stream(dev).synchronize()
-        return {k: out[k].cpu().numpy() for k in keys}
+        by_device: dict[torch.device, dict[str, torch.Tensor]] = {}
+        for k in keys:
+            by_device.setdefault(out[k].device, {})[k] = out[k]
+        host: dict[str, np.ndarray] = {}
+        for dev, tensors in by_device.items():
+            if dev.type == "cuda":
+                host.update(_pinned_copies(dev, tensors))
+            else:
+                host.update({k: t.cpu().numpy() for k, t in tensors.items()})
+        return {k: host[k] for k in keys}
 
 
 # pixels whose mask the host evaluated ``mask_ops.formula`` at: the band's
@@ -875,7 +972,12 @@ class Engine:
         ``lite=True`` copies back only found/quadrangle/probabilities (and
         the board with ``include_board``); logits, mask and board come back
         empty.  On a mesh ``lite`` takes the full path, as in the JAX
-        package, and every rank gets the whole batch's result."""
+        package, and every rank gets the whole batch's result.
+
+        On the card the result's arrays are views on pinned host memory
+        (``_copy_back``), which stays pinned while any of them lives; the
+        results alive at once pin at most a quarter of the host's memory,
+        and later calls copy through pageable memory until some are freed."""
         out = self.run_device(images, threshold)
         b = images.shape[0]
         if mesh_lib.spans_processes(self.mesh):

@@ -1254,6 +1254,195 @@ def test_process_batch_settles_planted_band_pixels_on_the_card() -> None:
     assert np.array_equal(res.binary_mask, old_formula(res.logits, 0.5))
 
 
+# -- the copy-back through pinned slabs ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def batch_engine():
+    _need_card()
+    from chessvision_tpu_torch.core import ChessVision
+    from chessvision_tpu_torch.synthetic import board_frames
+
+    return ChessVision(device="cuda").engine, board_frames(0, 8)[0], board_frames(1, 8)[0]
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _host_allocs() -> int:
+    stats = torch.cuda.host_memory_stats()
+    return int(stats["num_host_alloc"] if "num_host_alloc" in stats else stats["allocations.allocated"])
+
+
+@pytest.mark.parametrize("lite", [False, True], ids=["full", "lite"])
+@pytest.mark.parametrize("b", [0, 1, 8])
+def test_copy_back_through_pinned_slabs_equals_the_pageable_copy(batch_engine, monkeypatch, b, lite) -> None:
+    """Every output ``process_batch`` copies back, and every array it
+    returns, bit for bit the pageable path's (the ceiling patched to 0)
+    in dtype, shape and value; the counters count the bytes."""
+    from chessvision_tpu_torch import engine as engine_mod
+
+    engine, frames, _ = batch_engine
+    real = engine_mod._copy_back
+    seen = []
+
+    def both(out, keys):
+        with monkeypatch.context() as m:
+            m.setattr(engine_mod, "_PINNED_CEILING", 0)
+            pageable = engine_mod.copy_back_pageable_bytes
+            ref = real(out, keys)
+            assert engine_mod.copy_back_pageable_bytes - pageable == sum(v.nbytes for v in ref.values())
+        pinned, pageable = engine_mod.copy_back_pinned_bytes, engine_mod.copy_back_pageable_bytes
+        got = real(out, keys)
+        assert engine_mod.copy_back_pageable_bytes == pageable
+        assert engine_mod.copy_back_pinned_bytes - pinned == sum(v.nbytes for v in ref.values())
+        assert list(got) == list(ref) and all(_same_bits(got[k], ref[k]) for k in ref)
+        seen.append(ref)
+        return got
+
+    monkeypatch.setattr(engine_mod, "_copy_back", both)
+    res = engine.process_batch(frames[:b], lite=lite)
+    (ref,) = seen
+    for field, key in (("logits", "logits"), ("quadrangle", "quadrangle"), ("board_found", "found"),
+                       ("board_image", "board_image"), ("probabilities", "probabilities")):
+        if key in ref:
+            assert _same_bits(getattr(res, field), ref[key]), field
+    if not lite:
+        want = engine_mod._binary_mask(ref["logits"], 0.5, ref["binary_mask"].copy(), ref["band"])
+        assert _same_bits(res.binary_mask, want)
+        assert _same_bits(res.binary_mask, old_formula(ref["logits"], 0.5))
+
+
+def test_copy_back_arrays_are_writable_and_outlive_the_next_call(batch_engine) -> None:
+    engine, frames, others = batch_engine
+    first = engine.process_batch(frames)
+    kept = {k: getattr(first, k).copy() for k in ("logits", "binary_mask", "board_image", "probabilities")}
+    second = engine.process_batch(others)
+    assert not np.array_equal(second.logits, kept["logits"])
+    for k, v in kept.items():
+        assert np.array_equal(getattr(first, k), v), k
+    after = {k: getattr(second, k).copy() for k in kept}
+    for k in kept:
+        getattr(first, k)[...] = 0 if k != "logits" else -1.0
+        assert np.array_equal(getattr(second, k), after[k]), k
+
+
+def test_copy_back_goes_pageable_only_past_the_ceiling(batch_engine, monkeypatch) -> None:
+    """With room for one result's slab: a second result while the first
+    lives comes back pageable, and pinned again once the first is freed."""
+    import gc
+
+    from chessvision_tpu_torch import engine as engine_mod
+
+    engine, frames, _ = batch_engine
+    gc.collect()
+    live = engine_mod._pinned_live
+    nbytes = lambda r: sum(a.nbytes for a in (r.logits, r.binary_mask, r.board_image, r.probabilities,
+                                               r.quadrangle, r.board_found))
+    pinned, pageable = engine_mod.copy_back_pinned_bytes, engine_mod.copy_back_pageable_bytes
+    first = engine.process_batch(frames)
+    block = engine_mod._pinned_live - live
+    assert block > 0 and engine_mod.copy_back_pageable_bytes == pageable
+    assert engine_mod.copy_back_pinned_bytes - pinned >= nbytes(first)
+    monkeypatch.setattr(engine_mod, "_PINNED_CEILING", live + block)
+    pinned = engine_mod.copy_back_pinned_bytes
+    second = engine.process_batch(frames)
+    assert engine_mod.copy_back_pinned_bytes == pinned
+    assert engine_mod.copy_back_pageable_bytes - pageable >= nbytes(second)
+    assert engine_mod._pinned_live == live + block
+    assert all(_same_bits(getattr(first, k), getattr(second, k)) for k in ("logits", "board_image", "binary_mask"))
+    del first
+    gc.collect()
+    assert engine_mod._pinned_live == live
+    pageable = engine_mod.copy_back_pageable_bytes
+    third = engine.process_batch(frames)
+    assert engine_mod.copy_back_pageable_bytes == pageable and engine_mod._pinned_live == live + block
+    del second, third
+    gc.collect()
+    assert engine_mod._pinned_live == live
+
+
+def test_copy_back_reuses_the_hosts_cached_pinned_blocks(batch_engine) -> None:
+    """Twenty calls whose results are dropped: after the first two the
+    host allocator makes no new pinned block, and no slab stays live."""
+    import gc
+
+    from chessvision_tpu_torch import engine as engine_mod
+
+    engine, frames, _ = batch_engine
+    gc.collect()
+    live = engine_mod._pinned_live
+    for i in range(20):
+        engine.process_batch(frames)
+        if i == 1:
+            allocs = _host_allocs()
+    assert _host_allocs() == allocs
+    gc.collect()
+    assert engine_mod._pinned_live == live
+
+
+def test_copy_back_live_bytes_return_to_zero_after_del(batch_engine) -> None:
+    import gc
+
+    from chessvision_tpu_torch import engine as engine_mod
+
+    engine, frames, _ = batch_engine
+    gc.collect()
+    live = engine_mod._pinned_live
+    results = [engine.process_batch(frames), engine.process_batch(frames, lite=True), engine.process_batch(frames[:1])]
+    mask = results[0].binary_mask  # one array alone keeps its whole slab
+    assert engine_mod._pinned_live > live
+    del results
+    gc.collect()
+    assert engine_mod._pinned_live > live
+    del mask
+    gc.collect()
+    assert engine_mod._pinned_live == live
+
+
+def test_copy_back_of_odd_outputs_and_a_mixed_dict() -> None:
+    """A non-contiguous output, a channels-last one, bool, a 0-d and an
+    empty tensor on the card, and CPU tensors beside them: the arrays of
+    ``.cpu().numpy()``, the CPU ones still sharing their tensor's memory."""
+    _need_card()
+    import gc
+
+    from chessvision_tpu_torch import engine as engine_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cuda = {
+        "transposed": torch.randn((3, 40, 24), generator=gen, device="cuda").transpose(1, 2),
+        "strided": torch.randn((6, 33), generator=gen, device="cuda")[::2, 1::3],
+        "channels_last": torch.randn((2, 3, 5, 7), generator=gen, device="cuda").contiguous(
+            memory_format=torch.channels_last),
+        "bool": torch.randn(17, generator=gen, device="cuda") > 0,
+        "int64": torch.arange(-5, 6, device="cuda"),
+        "scalar": torch.tensor(2.5, device="cuda"),
+        "empty": torch.zeros((0, 256, 256), device="cuda", dtype=torch.uint8),
+        "u8": torch.randint(0, 256, (3, 3, 3), generator=gen, device="cuda", dtype=torch.uint8),
+    }
+    cpu = {"cpu_f32": torch.randn(4, 5), "cpu_t": torch.arange(12.0).view(3, 4).t()}
+    out = {**cuda, **cpu}
+    keys = ("cpu_t", "transposed", "bool", "cpu_f32", "strided", "channels_last", "int64", "scalar", "empty", "u8")
+    gc.collect()
+    live, pinned = engine_mod._pinned_live, engine_mod.copy_back_pinned_bytes
+    host = engine_mod._copy_back(out, keys)
+    assert list(host) == list(keys)
+    for k in keys:
+        want = out[k].cpu().numpy()
+        assert host[k].dtype == want.dtype and host[k].shape == want.shape, k
+        assert np.array_equal(host[k], want), k
+        assert host[k].flags.writeable
+    for k in cpu:
+        assert np.shares_memory(host[k], out[k].numpy())
+    assert engine_mod.copy_back_pinned_bytes - pinned == sum(out[k].numel() * out[k].element_size() for k in cuda)
+    assert engine_mod._pinned_live > live
+    del host
+    gc.collect()
+    assert engine_mod._pinned_live == live
+
+
 # -- YOLO11-seg: bn_act's SiLU epilogues and the extractor on the card ------------------------
 
 
